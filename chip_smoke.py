@@ -5,19 +5,35 @@
 
 Builds the CUDA kernels from ``multibox_tpu_torch/csrc`` with ``nvcc``,
 holds each against its plain PyTorch version on the card, then drives the
-main path — batched Inception-v3 MultiBox detect through
-``inference.run_detect_loop`` at full width (299×299, 256 priors, batch 32,
-bf16 backbone, f32 head) with random weights from a seed — and checks that
-the path went through the kernels (launch counts) and that what comes out
-is right, stage by stage. Every phase prints one JSON line; any failure
-raises and the process exits non-zero. Needs one CUDA device; without one
-it exits with code 2 and prints no result.
+port's two paths with random weights from a seed and checks that each
+went through its kernels (launch counts, zeroed just before the path and
+read just after) and that what comes out is right, stage by stage:
+
+- detect: batched Inception-v3 MultiBox detect through
+  ``inference.run_detect_loop`` at full width (299×299, 256 priors, batch
+  32, bf16 backbone, f32 head), then a BatchNorm-folded pass;
+- train: ``train.loop.train`` at ``Config(use_pallas=True)`` (the same
+  model, G = 16 boxes, greedy matching through the matching kernel, the
+  head through the matmul kernel forward and backward, RMSProp, EMA,
+  augmentation), 12 steps, then resumed from its checkpoint to 16; one
+  batch overfitted for 40 steps; stage times of a step.
+
+Every phase prints one JSON line; any failure raises and the process exits
+non-zero. Needs one CUDA device; without one it exits with code 2 and
+prints no result.
 
 Times are CUDA-event medians after a warm-up, each launch preceded by a
 write that evicts the L2 cache, taken on the card whose name and power
-limit are printed beside them. Tolerances: NMS indices, counts and scores
-exact; box kernels bitwise; matmul float32 rtol 1e-4 / atol 1e-4 (a sum
-over K = 6144 in another order), bfloat16 output rtol 2e-2 / atol 2e-2.
+limit are printed beside them; loop times are on the host clock, ending in
+a synchronize. Tolerances: NMS indices, counts and scores exact; box
+kernels bitwise; matching assignments exact; matmul float32 rtol 1e-4 /
+atol 1e-4 (a sum over K = 6144 in another order), bfloat16 output rtol
+2e-2 / atol 2e-2; the matmul's backward float32 rtol 1e-4 / atol 1e-4;
+the head's gradients through the kernel against the plain head rtol 1e-3
+/ atol 1e-4 of the largest entry (forward sums in another order, then
+products over up to 6144 terms); one train step with kernels against one
+without, loss rtol 1e-4 and head parameters rtol 1e-4 / atol 1e-5 (one
+update of at most lr·√10).
 """
 
 from __future__ import annotations
@@ -25,7 +41,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,9 +60,20 @@ from multibox_tpu_torch.config import Config  # noqa: E402
 from multibox_tpu_torch.data.augment import preprocess_eval  # noqa: E402
 from multibox_tpu_torch.device import resolve_device  # noqa: E402
 from multibox_tpu_torch import inference  # noqa: E402
+from multibox_tpu_torch.data import augment  # noqa: E402
+from multibox_tpu_torch.models import detector as detector_mod  # noqa: E402
 from multibox_tpu_torch.models.inception_v3 import ConvBN, fold_batch_norms  # noqa: E402
 from multibox_tpu_torch.ops import kernels  # noqa: E402
-from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, nms_kernel  # noqa: E402
+from multibox_tpu_torch.ops.kernels import (  # noqa: E402
+    box_kernel,
+    fused_matmul,
+    match_kernel,
+    nms_kernel,
+)
+from multibox_tpu_torch.train import loop as train_loop  # noqa: E402
+from multibox_tpu_torch.train import loss as train_loss  # noqa: E402
+from multibox_tpu_torch.train import state as train_state  # noqa: E402
+from multibox_tpu_torch.utils.checkpoint import CheckpointManager  # noqa: E402
 from torch.func import functional_call  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense).
@@ -286,6 +315,131 @@ def check_boxes(rng):
     return out
 
 
+def match_cases(rng):
+    """(name, gt [B, G, 4], num_gt [B], priors [P, 4]) for B4."""
+    def world(B, G, P, lo=1):
+        return (random_boxes(rng, (B, G)), rng.integers(lo, G + 1, B).astype(np.int32),
+                random_boxes(rng, (P,)))
+
+    cases = [("slice", *world(32, 16, 256)), ("coco_dp", *world(8, 64, 512)),
+             ("ssd_scratch", *world(2, 128, 9468))]
+    gt, num, pri = world(4, 16, 256)
+    gt[:, 1] = gt[:, 0]  # duplicated gt boxes: equal IoU rows
+    gt[:, 5] = 0.5  # zero-area box: a row of zero IoU everywhere
+    pri[3] = pri[2]  # duplicated priors: equal IoU columns
+    num[:] = 16
+    cases.append(("ties", gt, num, pri))
+    gt, num, pri = world(4, 16, 256)
+    num[:3] = 0
+    cases.append(("num_gt_0", gt, num, pri))
+    gt, num, pri = world(3, 24, 10)
+    num[:] = 24
+    cases.append(("g_above_p", gt, num, pri))
+    return cases
+
+
+def match_work(num, G, P):
+    """Operations greedy matching needs on this data: the IoU of each live
+    row (about 19 f32 operations a cell), then a compare and a select for
+    every live cell of every round."""
+    ops = 0
+    for n in np.clip(num, 0, G):
+        n = int(n)
+        ops += n * P * 19 + sum(2 * (n - k) * (P - k) for k in range(min(n, P)))
+    return ops
+
+
+def check_match(rng):
+    """B4: assignments exact against the plain version on every case. The
+    entry is timed at the train slice's shape (B=32, G=16, P=256)."""
+    cases = match_cases(rng)
+    for name, gt, num, pri in cases:
+        tg, tn, tp = dev(gt), dev(num), dev(pri)
+        got = match_kernel.greedy_match_cuda(tg, tn, tp)
+        torch.cuda.synchronize()
+        want = match_kernel.greedy_match_plain(tg, tn, tp)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"match[{name}]: assignments differ at {bad}")
+    _, gt, num, pri = cases[0]
+    tg, tn, tp = dev(gt), dev(num), dev(pri)
+    ms = time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp))
+    plain_ms = time_ms(lambda: match_kernel.greedy_match_plain(tg, tn, tp), reps=5, warmup=1)
+    B, G = gt.shape[:2]
+    P = pri.shape[0]
+    bound_ms, bound_by = bound(B * G * 16 + B * 4 + P * 16 + B * G * 4,
+                               match_work(num, G, P), "float32")
+    return {
+        "name": "match", "route": "cuda",
+        "source": "multibox_tpu_torch/csrc/match.cu",
+        "replaces": "multibox_tpu/ops/pallas/match_kernel.py:101",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "tolerance": "assignments exact", "shape": f"B={B} G={G} P={P}",
+        "rounds_run": int(np.minimum(num, P).sum()),
+        "cases": [c[0] for c in cases],
+    }
+
+
+def check_fused_backward(rng):
+    """B2': the autograd backward of the fused layer (kernel forward, the
+    JAX package's backward in torch.matmul) against autograd through the
+    plain version, float32, at the head's three shapes. The ReLU mask is
+    the kernel output's on both sides (a pre-activation within rounding
+    of 0 may fall on either side in two forwards); how many outputs the
+    two forwards put on different sides is reported. Tolerance rtol 1e-4
+    atol 1e-4: the same products, inputs equal."""
+    shapes, worst = [], 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": []}
+    for name, M, Kd, N, relu in (("Bottleneck", 2048, 2048, 96, True),
+                                 ("Locations", 32, 6144, 1024, False),
+                                 ("Confidences", 32, 6144, 256, False)):
+        x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32))
+        w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32))
+        b = dev(rng.normal(0, 0.1, N).astype(np.float32))
+        g = dev(rng.normal(0, 1, (M, N)).astype(np.float32))
+        leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
+        y = fused_matmul.fused_matmul_bias_relu(*leaves, relu)
+        got = torch.autograd.grad(y, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        mask = (y.detach() > 0) if relu else torch.ones_like(g, dtype=torch.bool)
+        y_plain = fused_matmul.fused_matmul_plain(*leaves, False)
+        want = torch.autograd.grad(y_plain, leaves, torch.where(mask, g, 0.0),
+                                   retain_graph=True)
+        flips = int(((fused_matmul.fused_matmul_plain(x, w, b, relu) > 0) != mask).sum()) \
+            if relu else 0
+        for part, a, c in zip(("dx", "dw", "db"), got, want):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"fused_backward[{name}.{part}]: {m}")
+            worst = max(worst, float((a - c).abs().max()))
+        yd = y.detach()
+        ms = time_ms(lambda: fused_matmul.fused_matmul_backward(x, w, b, yd, g, relu))
+        y_ref = fused_matmul.fused_matmul_plain(*leaves, relu)
+        plain_ms = time_ms(lambda: torch.autograd.grad(y_ref, leaves, g, retain_graph=True))
+        library_ms = time_ms(lambda: (g @ w.T, x.T @ g, g.sum(0)))
+        nbytes = (2 * M * Kd + Kd * N + (2 if relu else 1) * M * N + Kd * N + N) * 4
+        bound_ms, bound_by = bound(nbytes, 4.0 * M * Kd * N + M * N, "float32")
+        shapes.append({"name": name, "M": M, "K": Kd, "N": N, "relu": relu,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "mask_flips_between_forwards": flips})
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms)):
+            totals[key] += val
+        totals["bound"].append((bound_ms, bound_by))
+    return {
+        "name": "fused_matmul_backward", "route": "torch.matmul (the JAX package's "
+        "backward is plain products too), around the CUDA forward",
+        "source": "multibox_tpu_torch/ops/kernels/fused_matmul.py",
+        "replaces": "multibox_tpu/ops/pallas/fused_matmul.py:175",
+        "max_abs_err": worst, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": sum(t for t, _ in totals["bound"]),
+        "bound_by": max(totals["bound"])[1], "library_ms": totals["library_ms"],
+        "tolerance": "float32 rtol 1e-4 atol 1e-4",
+        "shape": "sum of the head's three layers at batch 32 (float32)",
+        "shapes": shapes,
+    }
+
+
 # --------------------------------------------------------------------------
 # the main path
 # --------------------------------------------------------------------------
@@ -462,7 +616,7 @@ def phase_detect(rng, gen, card_line, profile_it=False):
     images = sum(int(b["batch_valid"]) for b in data)
     check_results(results, images, cfg.max_detections)
     want = {"nms": len(data), "fused_matmul": 3 * len(data), "box_decode": len(data),
-            "box_encode": 0}
+            "box_encode": 0, "match": 0, "fused_matmul_backward": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     stages.update(stage_times(cfg, model, variables, priors, data[0]["images"]))
@@ -509,13 +663,246 @@ def phase_detect_folded(rng, variables, priors):
     counts = kernels.launch_counts()
     # the unfolded comparison model also ran its head through the kernel
     want = {"nms": 2, "fused_matmul": 2 * (fused_units + 3) + 2 * 3, "box_decode": 2,
-            "box_encode": 0}
+            "box_encode": 0, "match": 0, "fused_matmul_backward": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if worst > 0.1 or worst > 0.2 * scale:
         raise AssertionError(f"folded vs unfolded outputs differ by {worst} (scale {scale})")
     emit({"phase": "detect_folded", "ok": True, "fused_1x1_units": fused_units,
           "max_abs_err_vs_unfolded": worst, "output_abs_max": scale, "launches": counts})
+
+
+# --------------------------------------------------------------------------
+# the train path
+# --------------------------------------------------------------------------
+
+
+def make_train_data(rng, batches, cfg, canvas):
+    """Host batches: uint8 canvases and 1..G random boxes per image."""
+    B, G = cfg.batch_size, cfg.max_num_bboxes
+    data = []
+    for _ in range(batches):
+        num = rng.integers(1, G + 1, B).astype(np.int32)
+        boxes = random_boxes(rng, (B, G), min_size=0.1)
+        boxes[np.arange(G)[None, :] >= num[:, None]] = 0.0
+        data.append({"images": rng.integers(0, 256, (B, canvas, canvas, 3), dtype=np.uint8),
+                     "boxes": boxes, "num_boxes": num})
+    return data
+
+
+def train_stage_checks(cfg, model, state, priors, batch):
+    """Stage by stage on one augmented batch: B4 against its plain version
+    (exact); the head's gradients through the kernel (B2 forward and
+    backward) against the plain head on the same endpoints and targets;
+    one whole step with use_pallas=True against use_pallas=False from the
+    same state, batch and generator."""
+    tpriors = dev(priors)
+    gen = train_loop.step_generator(cfg.seed, state.step, DEV)
+    db = train_loop._device_batch(batch, DEV)
+    images, boxes, num = augment.augment_batch(gen, db["images"], db["boxes"],
+                                               db["num_boxes"], cfg)
+    got = match_kernel.greedy_match_cuda(boxes, num, tpriors)
+    torch.cuda.synchronize()
+    if not torch.equal(got, match_kernel.greedy_match_plain(boxes, num, tpriors)):
+        raise AssertionError("B4 differs from its plain version on the step's own boxes")
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    plain_model = inference.build_model(plain_cfg, model.num_priors, device=DEV)
+    with torch.no_grad():
+        endpoints = functional_call(
+            model.InceptionV3, {**sub_vars({"params": state.params}, "InceptionV3"),
+                                **sub_vars({"batch_stats": state.batch_stats}, "InceptionV3")},
+            (images,), {"train": True})
+    grads = {}
+    for tag, m in (("kernel", model), ("plain", plain_model)):
+        # in float32, as the head takes it: the gradient is compared before
+        # its cast to the backbone's bfloat16
+        feat = endpoints["Mixed_7c"].detach().float().requires_grad_(True)
+        head = {k: v.detach().clone().requires_grad_(True)
+                for k, v in sub_vars({"params": state.params}, "MultiBoxHead").items()}
+        loc, conf = functional_call(m.MultiBoxHead, head, ({"Mixed_7c": feat},))
+        total, _ = train_loss.multibox_loss(loc, conf, boxes, num, tpriors, use_pallas=False)
+        keys = sorted(head)
+        out = torch.autograd.grad(total, [head[k] for k in keys] + [feat])
+        grads[tag] = dict(zip(keys + ["Mixed_7c"], out))
+    worst = {}
+    for k, want in grads["plain"].items():
+        scale = float(want.abs().max())
+        torch.testing.assert_close(grads["kernel"][k], want, rtol=1e-3, atol=1e-4 * scale,
+                                   msg=lambda m: f"head gradient {k}: {m}")
+        worst[k] = float((grads["kernel"][k] - want).abs().max()) / max(scale, 1e-30)
+
+    results = {}
+    for tag, c, m in (("kernel", cfg, model), ("plain", plain_cfg, plain_model)):
+        s = state.clone()
+        step = train_loop.make_augmented_train_step(c, m, priors, device=DEV)
+        s, metrics = step(s, batch)
+        results[tag] = (s, float(metrics["loss"]))
+    loss_k, loss_p = results["kernel"][1], results["plain"][1]
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)):
+        raise AssertionError(f"step loss {loss_k} (kernels) vs {loss_p} (plain)")
+    head_err = 0.0
+    for k, v in results["plain"][0].params.items():
+        if k.startswith("MultiBoxHead."):
+            torch.testing.assert_close(results["kernel"][0].params[k], v, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m: f"head param {k} after one step: {m}")
+            head_err = max(head_err, float((results["kernel"][0].params[k] - v).detach()
+                                           .abs().max()))
+    return {"b4_on_step_boxes": "exact", "head_grad_rel_err": worst,
+            "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+            "step_head_param_max_abs_err": head_err}
+
+
+def train_stage_times(cfg, model, state, priors, batch, reps=5):
+    """Device time of each stage of a step (CUDA events between the
+    stages of hand-run steps; median of ``reps``): augment, forward, loss
+    with matching, backward, optimizer + EMA."""
+    tpriors = dev(priors)
+    optimizer = train_state.make_optimizer(cfg)
+    s = state.clone()
+    names = ("augment_ms", "forward_ms", "loss_ms", "backward_ms", "optimizer_ema_ms")
+    samples = {n: [] for n in names}
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        db = train_loop._device_batch(batch, DEV)
+        ev[0].record()
+        images, boxes, num = augment.augment_batch(
+            train_loop.step_generator(cfg.seed, s.step, DEV), db["images"], db["boxes"],
+            db["num_boxes"], cfg)
+        ev[1].record()
+        (loc, conf), new_stats = detector_mod.apply(
+            model, {"params": s.params, "batch_stats": s.batch_stats}, images, train=True)
+        ev[2].record()
+        total, _ = train_loss.multibox_loss(loc, conf, boxes, num, tpriors,
+                                            use_pallas=cfg.use_pallas)
+        ev[3].record()
+        keys = list(s.params)
+        g = dict(zip(keys, torch.autograd.grad(total, [s.params[k] for k in keys])))
+        ev[4].record()
+        optimizer.apply(s.params, g, s.opt_state)
+        train_state.ema_update(s.ema_params, s.params, s.step, cfg.moving_average_decay)
+        ev[5].record()
+        s.batch_stats, s.step = new_stats, s.step + 1
+        torch.cuda.synchronize()
+        if r:  # the first is a warm-up
+            for i, n in enumerate(names):
+                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    return {n: statistics.median(v) for n, v in samples.items()}
+
+
+def profile_train(step_fn, state, data):
+    """Steps under torch.profiler: the device's idle share over the window
+    from its first to its last event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in data:
+            state, _ = step_fn(state, b)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    if not events:
+        raise AssertionError("the profiler recorded no device event")
+    busy, covered, by_name = 0.0, events[0][0], {}
+    for start, end, name in events:
+        if end > covered:
+            busy += end - max(start, covered)
+            covered = end
+        total, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, calls + 1)
+    window = covered - events[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return state, {"steps": len(data), "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+                   "device_idle_share": 1.0 - busy / window, "device_events": len(events),
+                   "top": [{"name": k[:70], "ms": v[0] / 1e3, "calls": v[1]} for k, v in top]}
+
+
+def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=40):
+    """The train path at Config(use_pallas=True): Inception-v3 299, P=256,
+    batch 32, G=16, greedy matching, bf16 backbone, f32 head, RMSProp,
+    augmentation on a 343-px canvas. Returns the launch counts of the
+    train() run."""
+    cfg = Config(use_pallas=True, log_every_steps=1)
+    P, B = cfg.num_priors, cfg.batch_size
+    canvas = int(cfg.input_size * 1.15)
+    priors = np.sort(rng.uniform(0.05, 0.95, (P, 2, 2)).astype(np.float32), axis=1).reshape(P, 4)
+    model = inference.build_model(cfg, P, device=DEV)
+    state = train_state.create_train_state(cfg, model, SEED, P, device=DEV)
+    data = make_train_data(rng, loop_steps + 4, cfg, canvas)
+    out = {"phase": "train", "card": card_line,
+           "config": "Config(use_pallas=True): inception_v3 299x299, P=256, batch 32, G=16, "
+                     "greedy matching, bfloat16 backbone, float32 head, RMSProp "
+                     "(decay 0.9, eps 1.0, momentum 0.9), lr 0.01, augmentation on a "
+                     f"{canvas}-px canvas"}
+    out.update(train_stage_checks(cfg, model, state, priors, data[0]))
+    out.update(train_stage_times(cfg, model, state, priors, data[0]))
+
+    # the loop: N steps into a fresh logdir, then resume to N + 4
+    logdir = os.path.join(".work", "chip_smoke_train")
+    shutil.rmtree(logdir, ignore_errors=True)
+    stream = lambda start: iter(data[start:])  # noqa: E731
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = train_loop.train(cfg, stream, priors, logdir, max_steps=loop_steps, device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {"nms": 0, "fused_matmul": 3 * loop_steps, "fused_matmul_backward": 3 * loop_steps,
+            "box_decode": 0, "box_encode": loop_steps, "match": loop_steps}
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts}, expected {want}")
+    first = train_loop.train(cfg, stream, priors, logdir, max_steps=loop_steps + 4, device=DEV)
+    latest = CheckpointManager(logdir).latest_step()
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in logged]
+    if s.step != loop_steps or first.step != loop_steps + 4 or latest != loop_steps + 4:
+        raise AssertionError(f"resume: steps {s.step}, {first.step}, latest {latest}")
+    if [r["step"] for r in logged] != list(range(1, loop_steps + 5)):
+        raise AssertionError("the resumed run did not continue from its checkpoint")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in the train loop: {losses}")
+    steady = [r["images_per_sec"] for r in logged[2:loop_steps]]
+    shutil.rmtree(logdir, ignore_errors=True)
+    del s, first
+
+    # steady steps on the host clock, then overfit one fixed batch
+    step_fn = train_loop.make_augmented_train_step(cfg, model, priors, device=DEV)
+    st = state.clone()
+    st, _ = step_fn(st, data[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in data[1:6]:
+        st, _ = step_fn(st, b)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / 5
+    if profile_it:
+        st, prof = profile_train(step_fn, st, data[6:9])
+        out["profile"] = prof
+    del st
+    ocfg = dataclasses.replace(cfg, augment=False)
+    ostep = train_loop.make_augmented_train_step(ocfg, model, priors, device=DEV)
+    so, overfit = state.clone(), []
+    for _ in range(overfit_steps):
+        so, m = ostep(so, data[0])
+        overfit.append(float(m["loss"]))
+    if not (all(math.isfinite(x) for x in overfit) and overfit[-1] < overfit[0]):
+        raise AssertionError(f"overfit one batch: loss {overfit[0]} -> {overfit[-1]}")
+    del so, state
+    torch.cuda.empty_cache()
+
+    out.update({
+        "ok": True, "launches": counts, "loop_steps": loop_steps,
+        "loop_seconds": seconds, "resumed_from": loop_steps, "latest_checkpoint": latest,
+        "loop_images_per_s_logged": steady, "loss_first_last": [losses[0], losses[-1]],
+        "ms_per_step": ms_step, "images_per_s": B * 1e3 / ms_step,
+        "overfit_steps": overfit_steps, "overfit_loss_first": overfit[0],
+        "overfit_loss_last": overfit[-1]})
+    emit(out)
+    return counts
 
 
 def main() -> int:
@@ -540,19 +927,25 @@ def main() -> int:
           "ptxas": [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
 
     rng = np.random.default_rng(SEED)
-    entries = [check_nms(rng), check_fused_matmul(rng), *check_boxes(rng)]
+    entries = [check_nms(rng), check_fused_matmul(rng), *check_boxes(rng), check_match(rng)]
+    backward = check_fused_backward(rng)
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "ok": True, "card": card_line, "kernels": entries})
+    emit({"phase": "kernels", "ok": True, "card": card_line, "kernels": entries,
+          "fused_matmul_backward": backward})
 
     gen = torch.Generator().manual_seed(SEED)
     counts, variables, priors = phase_detect(rng, gen, card_line, args.profile)
     phase_detect_folded(rng, variables, priors)
+    del variables
+    torch.cuda.empty_cache()
+    train_counts = phase_train(rng, card_line, args.profile)
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for e in entries:
-        e["launches"] = counts[e["name"]]
-    on_path = {"nms", "fused_matmul", "box_decode"}
+    # launches on the two paths: detect (B1, B2, B3a) and train (B2, B3b, B4)
+    for e in entries + [backward]:
+        e["launches"] = counts[e["name"]] + train_counts[e["name"]]
+    on_path = {"nms", "fused_matmul", "box_decode", "box_encode", "match"}
     for e in entries:
         if e["name"] in on_path and e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on the main path")
@@ -561,6 +954,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card_line, "kernels": entries,
+                       "fused_matmul_backward": backward,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
 
     emit({"kernels": [{k: e[k] for k in contract_keys} for e in entries]})

@@ -62,6 +62,7 @@ def build_model(
         if cfg.compute_dtype == "bfloat16"
         else torch.float32,
         bottleneck_features=cfg.bottleneck_features,
+        bn_momentum=cfg.bn_momentum,
         device=resolve_device(device),
     )
 

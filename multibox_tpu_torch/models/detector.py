@@ -8,7 +8,8 @@ state-dict names: ``params`` (everything trainable), ``batch_stats`` (the
 BatchNorm ``mean`` / ``var`` buffers) and optionally ``ema`` (moving
 averages, shaped like ``params``). :func:`apply` runs the module on one
 such set with ``torch.func.functional_call``; choosing ``ema`` over
-``params`` costs no copy.
+``params`` costs no copy. With ``train=True`` it also returns the new
+``batch_stats``, as flax's ``apply(..., mutable=["batch_stats"])`` does.
 """
 
 from __future__ import annotations
@@ -20,8 +21,13 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.models.heads import MultiBoxHead
-from multibox_tpu_torch.models.inception_v3 import InceptionV3, feature_grid
+from multibox_tpu_torch.models.inception_v3 import (
+    InceptionV3,
+    SlimBatchNorm,
+    feature_grid,
+)
 
 Variables = Dict[str, Dict[str, torch.Tensor]]
 
@@ -37,7 +43,10 @@ class MultiBoxDetector(nn.Module):
         ported yet.
       num_classes: 1 for class-agnostic detection (reference behavior).
       compute_dtype: bfloat16 by default; params stay f32.
-      device: where :meth:`init_variables` puts what it makes.
+      bn_momentum: momentum of the BatchNorm running statistics in training
+        (slim's 0.9997 by default).
+      device: where :meth:`init_variables` puts what it makes; ``None``
+        is the CUDA device (raises without one), as for every entry point.
 
     Input images: ``[B, H, W, 3]`` float32 in ``[-1, 1]``
     (``inception_v3.preprocess_slim``). Default H = W = 299.
@@ -49,7 +58,7 @@ class MultiBoxDetector(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  folded: bool = False, use_pallas: Optional[bool] = None,
                  quantize: Optional[str] = None, bottleneck_features: int = 96,
-                 device=None):
+                 bn_momentum: float = 0.9997, device=None):
         super().__init__()
         if backbone == "mobilenet_v2":
             raise NotImplementedError("the MobileNetV2 backbone is not ported yet")
@@ -62,10 +71,10 @@ class MultiBoxDetector(nn.Module):
         self.num_priors = num_priors
         self.input_size = input_size
         self.folded = folded
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.InceptionV3 = InceptionV3(
             compute_dtype=compute_dtype, folded=folded, use_pallas=use_pallas,
-            quantize=quantize)
+            quantize=quantize, bn_momentum=bn_momentum)
         self.MultiBoxHead = MultiBoxHead(
             num_priors=num_priors,
             in_features=self.InceptionV3.out_features,
@@ -116,7 +125,24 @@ class MultiBoxDetector(nn.Module):
 
 def apply(model: MultiBoxDetector, apply_vars: Variables, images: torch.Tensor,
           train: bool = False):
-    """Run ``model`` on ``{"params": ..., "batch_stats": ...}``."""
+    """Run ``model`` on ``{"params": ..., "batch_stats": ...}``.
+
+    Returns ``(loc, conf)``; with ``train=True``, ``((loc, conf),
+    new_batch_stats)``: BatchNorm normalizes with the batch statistics and
+    ``new_batch_stats`` holds every unit's updated running ``mean``/``var``
+    (detached), keyed like ``batch_stats``."""
     tensors = dict(apply_vars["params"])
     tensors.update(apply_vars.get("batch_stats", {}))
-    return functional_call(model, tensors, (images,), {"train": train}, strict=True)
+    if not train:
+        return functional_call(model, tensors, (images,), {"train": False},
+                               strict=True)
+    bns = [(name, m) for name, m in model.named_modules()
+           if isinstance(m, SlimBatchNorm)]
+    for _, m in bns:
+        m.updated = None
+    out = functional_call(model, tensors, (images,), {"train": True}, strict=True)
+    new_stats = {}
+    for name, m in bns:
+        new_stats[f"{name}.mean"], new_stats[f"{name}.var"] = m.updated
+        m.updated = None
+    return out, new_stats

@@ -20,7 +20,13 @@ Choices made here:
 - Parameters are created on the ``meta`` device: a module describes the
   computation and the names, and the weights are supplied per call
   (``torch.func.functional_call``), as the flax model takes its variables.
-  Inference only in this slice: ``train=True`` raises.
+- ``train=True`` normalizes with the batch statistics and leaves each
+  BatchNorm's updated running statistics on the module
+  (:attr:`SlimBatchNorm.updated`), from where ``models.detector.apply``
+  collects them into a new ``batch_stats`` dictionary: the functional
+  counterpart of flax's ``mutable=["batch_stats"]``. ``F.batch_norm``'s
+  running-buffer update is not used (it keeps the unbiased variance and
+  takes the momentum in the opposite sense).
 """
 
 from __future__ import annotations
@@ -57,30 +63,45 @@ ENDPOINTS = (
 
 BN_EPS = 1e-3
 
-_TRAINING_MSG = (
-    "train=True (batch statistics, their running update and the backward) "
-    "belongs to the training slice of the port"
-)
-
-
 def _meta(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device="meta"))
 
 
 class SlimBatchNorm(nn.Module):
-    """Inference BatchNorm without γ: ``(x − mean)/√(var + 1e-3) + bias``
-    over the channel axis of an NCHW tensor. ``bias`` is a parameter;
-    ``mean`` and ``var`` are buffers (the ``batch_stats`` collection)."""
+    """BatchNorm without γ: ``(x − μ)/√(σ² + 1e-3) + bias`` over the channel
+    axis of an NCHW tensor. ``bias`` is a parameter; ``mean`` and ``var``
+    are buffers (the ``batch_stats`` collection).
 
-    def __init__(self, features: int):
+    Inference uses the running ``mean``/``var``. Training follows flax's
+    ``BatchNorm``: the batch statistics are computed in float32 or wider
+    whatever the input dtype, the variance is the biased fast form
+    ``max(0, E[x²] − E[x]²)``, gradients flow through both, and the running
+    statistics become ``m·running + (1 − m)·batch`` with ``m = momentum``
+    (0.9997, slim's), left in :attr:`updated` for the caller to collect."""
+
+    def __init__(self, features: int, momentum: float = 0.9997):
         super().__init__()
+        self.momentum = momentum
         self.bias = _meta(features)
         self.register_buffer("mean", torch.empty(features, device="meta"))
         self.register_buffer("var", torch.empty(features, device="meta"))
+        self.updated = None  # (mean, var) after a train-mode call
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.mean, self.var, None, self.bias,
-                            False, 0.0, BN_EPS)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, None, self.bias,
+                                False, 0.0, BN_EPS)
+        # statistics in at least float32 (flax's promote_types(dtype, f32))
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        mean = x32.mean(dims)
+        var = ((x32 * x32).mean(dims) - mean * mean).clamp_min(0.0)
+        y = (x32 - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+        y = y + self.bias[:, None, None]
+        m = self.momentum
+        self.updated = (m * self.mean + (1.0 - m) * mean.detach(),
+                        m * self.var + (1.0 - m) * var.detach())
+        return y.to(x.dtype)
 
 
 class _Conv(nn.Module):
@@ -110,7 +131,7 @@ class ConvBN(nn.Module):
                  strides: Sequence[int] = (1, 1), padding: str = "SAME",
                  compute_dtype: torch.dtype = torch.bfloat16,
                  folded: bool = False, use_pallas: Optional[bool] = None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, bn_momentum: float = 0.9997):
         super().__init__()
         if quantize:
             raise NotImplementedError(
@@ -138,11 +159,9 @@ class ConvBN(nn.Module):
         else:
             self.Conv = _Conv(in_features, features, kernel, use_bias=folded)
         if not folded:
-            self.BatchNorm = SlimBatchNorm(features)
+            self.BatchNorm = SlimBatchNorm(features, bn_momentum)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAINING_MSG)
         dt = self.compute_dtype
         if self.fused:
             # NCHW channels_last ↔ NHWC are views of the same bytes.
@@ -150,7 +169,7 @@ class ConvBN(nn.Module):
         bias = self.Conv.bias.to(dt) if self.folded else None
         x = F.conv2d(x, self.Conv.weight.to(dt), bias, self.strides, self.pad)
         if not self.folded:
-            x = self.BatchNorm(x)
+            x = self.BatchNorm(x, train)
         return torch.relu(x)
 
 
@@ -169,10 +188,12 @@ class _Block(nn.Module):
     """Shared plumbing of the Inception blocks: units are registered under
     their slim scope names, which contain ``/``."""
 
-    def __init__(self, compute_dtype, folded, use_pallas, quantize):
+    def __init__(self, compute_dtype, folded, use_pallas, quantize,
+                 bn_momentum):
         super().__init__()
         self._kw = dict(compute_dtype=compute_dtype, folded=folded,
-                        use_pallas=use_pallas, quantize=quantize)
+                        use_pallas=use_pallas, quantize=quantize,
+                        bn_momentum=bn_momentum)
 
     def unit(self, name, in_features, features, kernel, **kw):
         self.add_module(name, ConvBN(in_features, features, kernel,
@@ -188,8 +209,9 @@ class InceptionA(_Block):
 
     def __init__(self, in_features: int, pool_features: int,
                  compute_dtype=torch.bfloat16, folded=False, use_pallas=None,
-                 quantize=None):
-        super().__init__(compute_dtype, folded, use_pallas, quantize)
+                 quantize=None, bn_momentum=0.9997):
+        super().__init__(compute_dtype, folded, use_pallas, quantize,
+                         bn_momentum)
         c = in_features
         self.unit("Branch_0/Conv2d_0a_1x1", c, 64, (1, 1))
         self.unit("Branch_1/Conv2d_0a_1x1", c, 48, (1, 1))
@@ -215,8 +237,10 @@ class ReductionA(_Block):
     """35→17 grid reduction (Mixed_6a)."""
 
     def __init__(self, in_features: int, compute_dtype=torch.bfloat16,
-                 folded=False, use_pallas=None, quantize=None):
-        super().__init__(compute_dtype, folded, use_pallas, quantize)
+                 folded=False, use_pallas=None, quantize=None,
+                 bn_momentum=0.9997):
+        super().__init__(compute_dtype, folded, use_pallas, quantize,
+                         bn_momentum)
         c = in_features
         self.unit("Branch_0/Conv2d_1a_1x1", c, 384, (3, 3), strides=(2, 2),
                   padding="VALID")
@@ -240,8 +264,9 @@ class InceptionB(_Block):
 
     def __init__(self, in_features: int, channels_7x7: int,
                  compute_dtype=torch.bfloat16, folded=False, use_pallas=None,
-                 quantize=None):
-        super().__init__(compute_dtype, folded, use_pallas, quantize)
+                 quantize=None, bn_momentum=0.9997):
+        super().__init__(compute_dtype, folded, use_pallas, quantize,
+                         bn_momentum)
         c, c7 = in_features, channels_7x7
         self.unit("Branch_0/Conv2d_0a_1x1", c, 192, (1, 1))
         self.unit("Branch_1/Conv2d_0a_1x1", c, c7, (1, 1))
@@ -273,8 +298,10 @@ class ReductionB(_Block):
     """17→8 grid reduction (Mixed_7a)."""
 
     def __init__(self, in_features: int, compute_dtype=torch.bfloat16,
-                 folded=False, use_pallas=None, quantize=None):
-        super().__init__(compute_dtype, folded, use_pallas, quantize)
+                 folded=False, use_pallas=None, quantize=None,
+                 bn_momentum=0.9997):
+        super().__init__(compute_dtype, folded, use_pallas, quantize,
+                         bn_momentum)
         c = in_features
         self.unit("Branch_0/Conv2d_0a_1x1", c, 192, (1, 1))
         self.unit("Branch_0/Conv2d_1a_3x3", 192, 320, (3, 3), strides=(2, 2),
@@ -301,8 +328,10 @@ class InceptionC(_Block):
     """8×8 Inception block (Mixed_7b/7c): expanded-filter-bank outputs."""
 
     def __init__(self, in_features: int, compute_dtype=torch.bfloat16,
-                 folded=False, use_pallas=None, quantize=None):
-        super().__init__(compute_dtype, folded, use_pallas, quantize)
+                 folded=False, use_pallas=None, quantize=None,
+                 bn_momentum=0.9997):
+        super().__init__(compute_dtype, folded, use_pallas, quantize,
+                         bn_momentum)
         c = in_features
         self.unit("Branch_0/Conv2d_0a_1x1", c, 320, (1, 1))
         self.unit("Branch_1/Conv2d_0a_1x1", c, 384, (1, 1))
@@ -344,14 +373,15 @@ class InceptionV3(nn.Module):
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
                  final_endpoint: str = "Mixed_7c", folded: bool = False,
                  use_pallas: Optional[bool] = None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, bn_momentum: float = 0.9997):
         super().__init__()
         if final_endpoint not in ENDPOINTS:
             raise ValueError(f"unknown final_endpoint: {final_endpoint!r}")
         self.compute_dtype = compute_dtype
         self.final_endpoint = final_endpoint
         kw = dict(compute_dtype=compute_dtype, folded=folded,
-                  use_pallas=use_pallas, quantize=quantize)
+                  use_pallas=use_pallas, quantize=quantize,
+                  bn_momentum=bn_momentum)
         # (name, constructor) in forward order; None = pooling layer.
         c = 3
         plan = []

@@ -30,6 +30,14 @@ from torch import nn
 from multibox_tpu_torch.ops.kernels.fused_matmul import fused_matmul_bias_relu
 
 
+def _relu(y: torch.Tensor) -> torch.Tensor:
+    """``max(y, 0)`` of the plain path, as the JAX package writes it
+    (``jnp.maximum``): at y = 0 exactly its gradient is ½, where
+    ``torch.relu``'s is 0. The kernel path's backward masks on ``y > 0``
+    (0 there), in both packages."""
+    return torch.maximum(y, torch.zeros_like(y))
+
+
 class FusedDense(nn.Module):
     """Dense layer (+ optional fused ReLU). ``x [..., in] → [..., out]``."""
 
@@ -54,7 +62,7 @@ class FusedDense(nn.Module):
                 self.bias, self.relu)
             return y.reshape(*lead, self.features)
         y = x @ k + self.bias.to(self.dtype)
-        return torch.relu(y) if self.relu else y
+        return _relu(y) if self.relu else y
 
 
 class FusedConv1x1(nn.Module):
@@ -89,5 +97,5 @@ class FusedConv1x1(nn.Module):
         else:
             y = x @ k + bias.to(self.dtype)
             if self.relu:
-                y = torch.relu(y)
+                y = _relu(y)
         return y.reshape(B, H, W, self.features)

@@ -35,11 +35,12 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise intersection areas. ``a``: ``[N, 4]``, ``b``: ``[M, 4]`` → ``[N, M]``."""
-    ay0, ax0, ay1, ax1 = _split4(a)  # each [N, 1]
-    by0, bx0, by1, bx1 = _split4(b)  # each [M, 1]
-    inter_h = torch.minimum(ay1, by1.T) - torch.maximum(ay0, by0.T)
-    inter_w = torch.minimum(ax1, bx1.T) - torch.maximum(ax0, bx0.T)
+    """Pairwise intersection areas. ``a``: ``[..., N, 4]``, ``b``: ``[M, 4]``
+    → ``[..., N, M]`` (leading dimensions of ``a`` are a batch)."""
+    ay0, ax0, ay1, ax1 = _split4(a)  # each [..., N, 1]
+    by0, bx0, by1, bx1 = (b[:, k] for k in range(4))  # each [M]
+    inter_h = torch.minimum(ay1, by1) - torch.maximum(ay0, by0)
+    inter_w = torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0)
     return inter_h.clamp_min(0.0) * inter_w.clamp_min(0.0)
 
 
@@ -50,13 +51,15 @@ def _iou_from(inter: torch.Tensor, union: torch.Tensor) -> torch.Tensor:
 
 
 def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU. ``a``: ``[N, 4]``, ``b``: ``[M, 4]`` → ``[N, M]`` in [0, 1].
+    """Pairwise IoU. ``a``: ``[..., N, 4]``, ``b``: ``[M, 4]`` → ``[..., N, M]``
+    in [0, 1].
 
     IoU with a degenerate (zero-area) box is 0, not NaN — padded gt rows
-    (all-zero boxes) must stay inert through matching.
+    (all-zero boxes) must stay inert through matching. The CUDA matching
+    kernel (``csrc/match.cu``) repeats these operations in this order.
     """
     inter = intersection(a, b)
-    union = area(a)[:, None] + area(b)[None, :] - inter
+    union = area(a)[..., :, None] + area(b) - inter
     return _iou_from(inter, union)
 
 

@@ -31,12 +31,14 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 
-# source file → extra nvcc flags. nms.cu compares IoUs against a threshold
-# and must round exactly like the plain version: no FMA contraction.
+# source file → extra nvcc flags. nms.cu and match.cu compute IoUs that
+# must round exactly like the plain version's (a threshold comparison, ties
+# in an arg-max): no FMA contraction.
 _SOURCES = {
     "box.cu": (),
     "nms.cu": ("-fmad=false",),
     "fused_matmul.cu": (),
+    "match.cu": ("-fmad=false",),
 }
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,11 +47,15 @@ _NVCC_FLAGS = (
 
 # Launch counts, one per kernel entry: a wrapper adds one exactly where it
 # launches its kernel, so a run can show which kernels its path went through.
+# "fused_matmul_backward" counts the calls of that kernel's backward, which
+# is plain matrix products (as in the JAX package), not a kernel of ours.
 LAUNCHES: Dict[str, int] = {
     "nms": 0,
     "fused_matmul": 0,
+    "fused_matmul_backward": 0,
     "box_decode": 0,
     "box_encode": 0,
+    "match": 0,
 }
 
 
@@ -167,8 +173,12 @@ def load_library():
         lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, f, p]
         # (x, w, b, out, M, K, N, relu, is_bf16, stream)
         lib.mbx_fused_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        # (gt, num_gt, priors, out, scratch, B, G, P, stream)
+        lib.mbx_greedy_match.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.mbx_greedy_match_scratch_floats.argtypes = [i, i]
+        lib.mbx_greedy_match_scratch_floats.restype = ll
         for fn in (lib.mbx_box_decode, lib.mbx_box_encode, lib.mbx_nms,
-                   lib.mbx_fused_matmul):
+                   lib.mbx_fused_matmul, lib.mbx_greedy_match):
             fn.restype = i
         _lib = lib
         return lib

@@ -14,8 +14,14 @@ layers, where M = 32 also means few blocks. The design masks ragged M, N
 and K itself instead of padding copies of x and w, and otherwise stays
 simple: CUDA cores, no tensor cores, no split along K.
 
-Forward only: the backward (plain matmuls in the JAX package) belongs to
-the training slice, so a tensor that requires grad is refused.
+Backward: when an input requires grad, the call goes through
+:class:`_FusedLayer`, a ``torch.autograd.Function`` whose forward launches
+the same kernel and saves ``x, w, b`` and the output ``y``, and whose
+backward is the JAX package's (``fused_matmul.py`` ``_bwd``), step by
+step: the ReLU mask from the output (``y > 0``), then ``dx = g·wᵀ``,
+``dw = xᵀ·g`` and ``db = Σg`` in f32, each cast to its input's dtype. Those
+are plain matrix products outside any kernel in the JAX package too, so
+they stay ``torch.matmul`` here.
 
 Source: ``csrc/fused_matmul.cu``.
 """
@@ -48,10 +54,8 @@ def fused_matmul_bias_relu(
     """
     if (torch.is_grad_enabled()
             and (x.requires_grad or w.requires_grad or b.requires_grad)):
-        raise NotImplementedError(
-            "fused_matmul_bias_relu is forward-only: its backward is part of "
-            "the training slice of the port; call it under torch.no_grad()"
-        )
+        # the Function's forward comes back here with grad mode off
+        return _FusedLayer.apply(x, w, b, relu)
     K.require(x.dim() == 2 and w.dim() == 2 and b.dim() == 1
               and x.shape[1] == w.shape[0] and w.shape[1] == b.shape[0],
               f"fused_matmul: x [M, K], w [K, N], b [N] expected, got "
@@ -80,6 +84,40 @@ def fused_matmul_bias_relu(
         K.check_launch(err, "mbx_fused_matmul")
         K.LAUNCHES["fused_matmul"] += 1
     return out
+
+
+def fused_matmul_backward(x, w, b, y, g, relu: bool, needs=(True, True, True)):
+    """The backward of :func:`fused_matmul_bias_relu` given its saved
+    inputs and output: ``(dx, dw, db)``, ``None`` where ``needs`` says the
+    gradient is not wanted. The JAX package's ``_bwd``. Counted (as
+    ``fused_matmul_backward``) when it runs on the card."""
+    if relu:
+        g = torch.where(y > 0, g, torch.zeros_like(g))
+    g32 = g.to(torch.float32)
+    dx = (g32 @ w.to(torch.float32).T).to(x.dtype) if needs[0] else None
+    dw = (x.to(torch.float32).T @ g32).to(w.dtype) if needs[1] else None
+    db = g32.sum(0).to(b.dtype) if needs[2] else None
+    if g.is_cuda:
+        K.LAUNCHES["fused_matmul_backward"] += 1
+    return dx, dw, db
+
+
+class _FusedLayer(torch.autograd.Function):
+    """Autograd for the fused layer: the kernel forward, the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu):
+        y = fused_matmul_bias_relu(x, w, b, relu)
+        ctx.save_for_backward(x, w, b, y)
+        ctx.relu = relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, y = ctx.saved_tensors
+        dx, dw, db = fused_matmul_backward(x, w, b, y, g, ctx.relu,
+                                           ctx.needs_input_grad[:3])
+        return dx, dw, db, None
 
 
 def conv1x1_bias_relu(

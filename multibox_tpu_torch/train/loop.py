@@ -1,0 +1,289 @@
+"""Training loop: host batches → on-device augment → train step → metrics
+and checkpoints.
+
+- Resumes from the latest checkpoint in ``logdir`` by default.
+- Each step is one call: augmentation, forward, matching, loss, backward,
+  optimizer and EMA run on the device; only the uint8 canvases and the
+  padded boxes cross from the host, and metrics come back only when they
+  are logged.
+- The augmentation's random numbers come from a generator seeded with
+  ``(cfg.seed, step)``: deterministic, and the same after a resume.
+- One device: the JAX package's multi-device data parallelism is not
+  ported yet. Nor are its tfrecord pipeline and periodic eval
+  (``eval_tfrecords`` raises) or the slim/keras restore.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Callable, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from multibox_tpu_torch.config import Config
+from multibox_tpu_torch.data import augment as augment_mod
+from multibox_tpu_torch.data.pipeline import Prefetcher
+from multibox_tpu_torch.device import resolve_device
+from multibox_tpu_torch.inference import build_model
+from multibox_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    make_train_step,
+)
+from multibox_tpu_torch.utils.checkpoint import CheckpointManager
+from multibox_tpu_torch.utils.metrics import MetricsWriter
+
+log = logging.getLogger(__name__)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The augmentation generator of one step, on ``device``, seeded from
+    ``(seed, step)``."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _device_batch(batch, device):
+    return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def make_augmented_train_step(cfg: Config, model, priors, device=None):
+    """Wrap the train step so that augmentation runs first, on the device.
+
+    Batch in: uint8 canvases ``images [B, H, W, 3]``, ``boxes [B, G, 4]``,
+    ``num_boxes [B]`` and optional ``labels [B, G]`` (numpy or tensors).
+    With ``cfg.augment`` off, images only go through ``preprocess_eval``.
+    """
+    device = resolve_device(device)
+    base_step = make_train_step(cfg, model, priors, device=device)
+
+    def step(state: TrainState, batch):
+        batch = _device_batch(batch, device)
+        labels = batch.get("labels")
+        if cfg.augment:
+            gen = step_generator(cfg.seed, state.step, device)
+            out = augment_mod.augment_batch(
+                gen, batch["images"], batch["boxes"], batch["num_boxes"], cfg,
+                labels=labels)
+            if labels is not None:
+                images, boxes, num_boxes, labels = out
+            else:
+                images, boxes, num_boxes = out
+        else:
+            images = augment_mod.preprocess_eval(batch["images"], cfg.input_size)
+            boxes, num_boxes = batch["boxes"], batch["num_boxes"]
+        device_batch = {"images": images, "boxes": boxes, "num_boxes": num_boxes}
+        if labels is not None and cfg.num_classes > 1:
+            device_batch["labels"] = labels
+        return base_step(state, device_batch)
+
+    return step
+
+
+def make_chunked_step(step_fn, num_steps: int):
+    """Run ``num_steps`` train steps over a stacked superbatch (leading
+    chunk axis) in one call; returns the last step's metrics."""
+
+    def chunk_step(state, superbatch):
+        metrics = None
+        for k in range(num_steps):
+            state, metrics = step_fn(state, {key: v[k] for key, v in superbatch.items()})
+        return state, metrics
+
+    return chunk_step
+
+
+_BACKBONE_SCOPES = ("InceptionV3", "MobileNetV2")
+
+
+def _restore_pretrained(state: TrainState, path: str, device) -> TrainState:
+    """Warm-start the backbone from another run of this package (a logdir
+    with checkpoints). The slim and keras formats are not ported yet."""
+    if os.path.isdir(path) and CheckpointManager(path).latest_step() is not None:
+        return _warm_start_from_logdir(state, path, device)
+    raise NotImplementedError(
+        f"pretrained_model={path!r}: restoring slim or keras checkpoints "
+        "(models/tf_import) is not ported yet; see ROADMAP.md, queue 1, item 15")
+
+
+def _warm_start_from_logdir(state: TrainState, path: str, device) -> TrainState:
+    """Copy the backbone's params and batch_stats (EMA shadows preferred)
+    out of another run's latest checkpoint into a fresh state; the head
+    and the optimizer stay as initialized."""
+    raw = CheckpointManager(path).restore_raw(device=device)
+    src_params = raw.get("ema_params") or raw["params"]
+    src_stats = raw.get("batch_stats") or {}
+    scopes = [s for s in _BACKBONE_SCOPES
+              if any(k.startswith(s + ".") for k in src_params)
+              and any(k.startswith(s + ".") for k in state.params)]
+    if not scopes:
+        raise ValueError(f"no common backbone scope between {path} and this model")
+
+    def graft(dst, src, what):
+        mismatch = []
+        for k, v in dst.items():
+            if not k.split(".", 1)[0] in scopes:
+                continue
+            if k not in src or tuple(src[k].shape) != tuple(v.shape):
+                mismatch.append((k, tuple(v.shape),
+                                 tuple(src[k].shape) if k in src else None))
+                continue
+            with torch.no_grad():
+                v.copy_(src[k])
+        if mismatch:
+            raise ValueError(f"warm-start {what} shape mismatch (differing backbone "
+                             f"config?): {mismatch[:5]}")
+
+    graft(state.params, src_params, "params")
+    graft(state.batch_stats, src_stats, "batch_stats")
+    with torch.no_grad():
+        for k, v in state.params.items():
+            state.ema_params[k].copy_(v)
+    log.info("warm-started backbone scope(s) %s from %s (EMA weights)", scopes, path)
+    return state
+
+
+def train(
+    cfg: Config,
+    batches: Union[Iterable, Callable[[int], Iterable]],
+    priors: np.ndarray,
+    logdir: str,
+    pretrained_model: Optional[str] = None,
+    max_steps: Optional[int] = None,
+    eval_tfrecords=None,
+    schedule_total: Optional[int] = None,
+    device=None,
+) -> TrainState:
+    """Run training on one device; returns the final state. Resumes from
+    ``logdir``'s latest checkpoint when there is one.
+
+    ``batches`` is an iterable of host batch dicts (``images`` uint8
+    ``[B, H, W, 3]`` canvases, ``boxes [B, G, 4]``, ``num_boxes [B]``,
+    optional ``labels``), or a callable that takes the step training
+    starts from and returns such an iterable (so that a resumed run need
+    not replay the stream from its start).
+
+    ``max_steps`` bounds this invocation and sets the horizon of the LR
+    schedule; ``schedule_total`` pins that horizon instead when one run
+    spans several bounded invocations. ``device=None`` is the CUDA device.
+    """
+    device = resolve_device(device)
+    if eval_tfrecords:
+        raise NotImplementedError(
+            "periodic eval (eval_tfrecords) needs evaluate.py and the tfrecord "
+            "pipeline, which are not ported yet; see ROADMAP.md, queue 1, item 8")
+    if cfg.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    total = max_steps if max_steps is not None else cfg.max_number_of_steps
+    horizon = schedule_total if schedule_total is not None else total
+    if horizon != cfg.max_number_of_steps:
+        cfg = dataclasses.replace(cfg, max_number_of_steps=horizon)
+    priors = np.asarray(priors, np.float32)
+    model = build_model(cfg, priors.shape[0], device=device)
+    state = create_train_state(cfg, model, cfg.seed, priors.shape[0], device=device)
+
+    ckpt = CheckpointManager(logdir, keep=cfg.keep_checkpoints,
+                             save_every=cfg.save_every_steps)
+    start_step = 0
+    latest = ckpt.latest_step()
+    if latest is not None:
+        log.info("resuming from checkpoint step %d", latest)
+        state = ckpt.restore(state, device=device)
+        start_step = int(latest)
+    elif pretrained_model:
+        state = _restore_pretrained(state, pretrained_model, device)
+
+    step_fn = make_augmented_train_step(cfg, model, priors, device=device)
+    chunk = max(1, int(cfg.steps_per_host_transfer))
+    cstep = make_chunked_step(step_fn, chunk) if chunk > 1 else None
+    source = batches(start_step) if callable(batches) else batches
+    writer = MetricsWriter(logdir)
+
+    t_last = time.time()
+    step_idx = start_step
+    last_logged_step = start_step
+    profiler = None
+    profiled = False
+    profile_start_step = start_step
+    pending: list = []
+
+    def run_pending(state, pending, step_idx):
+        if cstep is not None and len(pending) == chunk:
+            superbatch = {k: np.stack([np.asarray(b[k]) for b in pending])
+                          for k in pending[0]}
+            state, metrics = cstep(state, superbatch)
+            return state, metrics, step_idx + len(pending)
+        metrics = None
+        for b in pending:
+            state, metrics = step_fn(state, b)
+            step_idx += 1
+        return state, metrics, step_idx
+
+    try:
+        for batch in Prefetcher(iter(source), depth=3):
+            if step_idx >= total:
+                break
+            pending.append(batch)
+            if len(pending) < min(chunk, total - step_idx):
+                continue
+            # One-shot profiler window of at least profile_steps steps, armed
+            # after the first (warm-up) iteration.
+            if (cfg.profile_steps and not profiled and profiler is None
+                    and step_idx >= start_step + 1):
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(ProfilerActivity.CUDA)
+                profiler = profile(activities=acts)
+                profiler.__enter__()
+                profile_start_step = step_idx
+            prev_step = step_idx
+            state, metrics, step_idx = run_pending(state, pending, step_idx)
+            pending = []
+            if profiler is not None and step_idx >= profile_start_step + cfg.profile_steps:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                profiler.__exit__(None, None, None)
+                profiler.export_chrome_trace(os.path.join(logdir, "trace.json"))
+                profiler, profiled = None, True
+                log.info("wrote profiler trace to %s", logdir)
+
+            if (step_idx // cfg.log_every_steps > prev_step // cfg.log_every_steps
+                    or step_idx == total):
+                metrics = {k: float(v) for k, v in metrics.items()}
+                now = time.time()
+                steps_done = step_idx - last_logged_step
+                ips = cfg.batch_size * steps_done / max(now - t_last, 1e-9)
+                t_last = now
+                last_logged_step = step_idx
+                metrics["images_per_sec"] = ips
+                writer.write(step_idx, metrics)
+                log.info("step %d loss=%.4f (conf=%.4f loc=%.4f) %.1f img/s",
+                         step_idx, metrics["loss"], metrics["loss_conf"],
+                         metrics["loss_loc"], ips)
+            if (cfg.image_summary_steps
+                    and step_idx // cfg.image_summary_steps
+                    > prev_step // cfg.image_summary_steps):
+                writer.write_images(step_idx, np.asarray(batch["images"]),
+                                    np.asarray(batch["boxes"]),
+                                    np.asarray(batch["num_boxes"]))
+            if chunk > 1:
+                # step_idx advances by K: save on crossings of the cadence
+                if step_idx // cfg.save_every_steps > prev_step // cfg.save_every_steps:
+                    ckpt.save(step_idx, state, force=True)
+            else:
+                ckpt.save(step_idx, state)
+        if ckpt.latest_step() != step_idx:
+            ckpt.save(step_idx, state, force=True)
+    finally:
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+        writer.close()
+        ckpt.close()
+    return state

@@ -15,8 +15,12 @@ from multibox_tpu_torch import inference as tinf
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.models import convert
+from multibox_tpu_torch.models.detector import MultiBoxDetector
 from multibox_tpu_torch.ops import kernels
-from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, nms_kernel
+from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, match_kernel, nms_kernel
+from multibox_tpu_torch.train import create_train_state, make_train_step
+from multibox_tpu_torch.train.loop import make_augmented_train_step, train
+from multibox_tpu_torch.utils.checkpoint import CheckpointManager
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "multibox_tpu_torch"
@@ -67,6 +71,16 @@ SMALL = dict(input_size=75, num_priors=4, compute_dtype="float32")
 PRIORS = np.array([[0.1, 0.1, 0.5, 0.5]] * 4, np.float32)
 
 
+def CheckpointManager_restore():
+    """Restore of a saved checkpoint with no device named."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, save_every=1)
+        mgr.save(1, {"step": 1, "params": {}}, force=True)
+        return mgr.restore(None)
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -78,9 +92,18 @@ PRIORS = np.array([[0.1, 0.1, 0.5, 0.5]] * 4, np.float32)
         lambda: tinf.run_detect_loop(Config(**SMALL), {"params": {}}, [], PRIORS),
         lambda: convert.flax_to_torch({"params": {}}),
         lambda: resolve_device("cuda"),
+        lambda: MultiBoxDetector(num_priors=4, input_size=75),
+        lambda: create_train_state(Config(**SMALL), MultiBoxDetector(
+            num_priors=4, input_size=75, device="cpu"), 0, 4),
+        lambda: make_train_step(Config(**SMALL), None, PRIORS),
+        lambda: make_augmented_train_step(Config(**SMALL), None, PRIORS),
+        lambda: train(Config(**SMALL), [], PRIORS, "unused_logdir"),
+        lambda: CheckpointManager_restore(),
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
-         "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda"],
+         "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
+         "detector", "create_train_state", "make_train_step",
+         "make_augmented_train_step", "train", "checkpoint_restore"],
 )
 def test_entry_points_raise_without_cuda_when_device_is_unset(call):
     needs_no_cuda()
@@ -116,6 +139,7 @@ def test_kernel_sources_are_in_the_package_and_plain_c():
         assert 'extern "C"' in text
         assert "torch/" not in text and "cutlass" not in text and "ATen" not in text
     assert "-fmad=false" in kernels._SOURCES["nms.cu"]
+    assert "-fmad=false" in kernels._SOURCES["match.cu"]
     assert "arch=compute_90a,code=sm_90a" in kernels._NVCC_FLAGS
 
 
@@ -152,8 +176,9 @@ def _function(module, name):
 @pytest.mark.parametrize(
     "module,name",
     [(nms_kernel, "nms_select"), (fused_matmul, "fused_matmul_bias_relu"),
-     (box_kernel, "decode_boxes_cuda"), (box_kernel, "encode_boxes_cuda")],
-    ids=["nms", "fused_matmul", "box_decode", "box_encode"],
+     (box_kernel, "decode_boxes_cuda"), (box_kernel, "encode_boxes_cuda"),
+     (match_kernel, "greedy_match_cuda")],
+    ids=["nms", "fused_matmul", "box_decode", "box_encode", "match"],
 )
 def test_wrappers_have_no_fallback_and_count_their_launches(module, name):
     """No ``try`` around the launch, the plain version only behind an
@@ -175,8 +200,12 @@ def test_launch_counts_do_not_move_on_the_cpu():
     fused_matmul.fused_matmul_bias_relu(torch.rand(3, 4), torch.rand(4, 2), torch.zeros(2))
     box_kernel.decode_boxes_cuda(torch.rand(2, 8, 4), torch.rand(8, 4))
     box_kernel.encode_boxes_cuda(torch.rand(2, 8, 4), torch.rand(8, 4))
+    match_kernel.greedy_match_cuda(torch.rand(2, 3, 4), torch.tensor([3, 1]), torch.rand(8, 4))
+    x = torch.rand(3, 4, requires_grad=True)
+    fused_matmul.fused_matmul_bias_relu(x, torch.rand(4, 2), torch.zeros(2)).sum().backward()
     assert kernels.launch_counts() == {
-        "nms": 0, "fused_matmul": 0, "box_decode": 0, "box_encode": 0}
+        "nms": 0, "fused_matmul": 0, "fused_matmul_backward": 0, "box_decode": 0,
+        "box_encode": 0, "match": 0}
     assert kernels.resolve_use_pallas(None, torch.zeros(1)) is False
     assert kernels.resolve_use_pallas(True, torch.zeros(1)) is True
 
@@ -241,5 +270,16 @@ def test_kernels_match_their_plain_versions_on_the_card():
                        box_kernel.decode_boxes_plain(off, pri[None]))
     assert torch.equal(box_kernel.encode_boxes_cuda(off, pri),
                        box_kernel.encode_boxes_plain(off, pri[None]))
+    gt = t(np.sort(rng.uniform(0, 1, (5, 16, 2, 2)), axis=2).reshape(5, 16, 4)).to(dev)
+    n = torch.tensor([16, 3, 0, 9, 40], dtype=torch.int32, device=dev)
+    assert torch.equal(match_kernel.greedy_match_cuda(gt, n, boxes[0]),
+                       match_kernel.greedy_match_plain(gt, n, boxes[0]))
+    xg, wg, bg = (a.clone().requires_grad_(True) for a in (x, w, b))
+    grads = torch.autograd.grad(fused_matmul.fused_matmul_bias_relu(xg, wg, bg).sum(),
+                                (xg, wg, bg))
+    want = torch.autograd.grad(fused_matmul.fused_matmul_plain(xg, wg, bg).sum(),
+                               (xg, wg, bg))
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="float32 only"):
         nms_kernel.nms_select(boxes.double(), scores.double(), 5)

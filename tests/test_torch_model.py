@@ -56,7 +56,7 @@ def nets():
     x = rng.uniform(-1, 1, (2, SIZE, SIZE, 3)).astype(np.float32)
     variables = perturb(to_numpy_tree(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x))), rng)
     tmodel = detector.MultiBoxDetector(
-        num_priors=P, input_size=SIZE, compute_dtype=torch.float32)
+        num_priors=P, input_size=SIZE, compute_dtype=torch.float32, device="cpu")
     tvars = convert.flax_to_torch(variables, device="cpu")
     return {"jmodel": jmodel, "jvars": variables, "tmodel": tmodel,
             "tvars": tvars, "x": x}
@@ -166,9 +166,13 @@ def test_unported_variants_say_so():
         detector.MultiBoxDetector(num_priors=4, backbone="mobilenet_v2")
     with pytest.raises(ValueError, match="unknown head_type"):
         detector.MultiBoxDetector(num_priors=4, head_type="nope")
+    # train mode is ported now: batch statistics, and the running update
+    # left for detector.apply to collect
     net = inception_v3.ConvBN(3, 4, (3, 3), compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        net(torch.zeros(1, 3, 5, 5), train=True)
+    weights = {"Conv.weight": torch.ones(4, 3, 3, 3), "BatchNorm.bias": torch.zeros(4),
+               "BatchNorm.mean": torch.zeros(4), "BatchNorm.var": torch.ones(4)}
+    y = functional_call(net, weights, (torch.rand(2, 3, 5, 5),), {"train": True})
+    assert torch.isfinite(y).all() and net.BatchNorm.updated is not None
 
 
 # -------------------------------------------------------------------- head
@@ -223,7 +227,7 @@ def test_folded_model_matches_unfolded_and_jax_fold(nets, use_kernel_wrapper):
             folded_vars["params"][key].numpy(), value.numpy(), rtol=1e-5, atol=1e-6)
     folded = detector.MultiBoxDetector(
         num_priors=P, input_size=SIZE, compute_dtype=torch.float32,
-        folded=True, use_pallas=use_kernel_wrapper)
+        folded=True, use_pallas=use_kernel_wrapper, device="cpu")
     assert {k for k, _ in folded.named_parameters()} == set(folded_vars["params"])
     assert sum(1 for m in folded.modules()
                if isinstance(m, inception_v3.ConvBN) and m.fused) == 40
@@ -237,7 +241,7 @@ def test_folded_model_matches_unfolded_and_jax_fold(nets, use_kernel_wrapper):
 
 def test_init_variables_are_seeded_and_complete():
     model = detector.MultiBoxDetector(num_priors=4, input_size=SIZE,
-                                      compute_dtype=torch.float32)
+                                      compute_dtype=torch.float32, device="cpu")
     a = model.init_variables(torch.Generator().manual_seed(5))
     b = model.init_variables(torch.Generator().manual_seed(5))
     assert set(a["params"]) == {k for k, _ in model.named_parameters()}

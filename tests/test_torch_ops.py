@@ -270,7 +270,13 @@ def test_matmul_refuses_tensors_that_require_grad(rng):
     x = t(rng.normal(0, 1, (4, 5)).astype(np.float32)).requires_grad_()
     w = t(rng.normal(0, 1, (5, 3)).astype(np.float32))
     b = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_matmul.fused_matmul_bias_relu(x, w, b, True)
+    # The refusal is gone since the backward was ported: a tensor that
+    # requires grad goes through the autograd Function, with the same
+    # forward as under no_grad.
+    y = fused_matmul.fused_matmul_bias_relu(x, w, b, True)
+    assert y.requires_grad and y.grad_fn is not None
+    y.sum().backward()
+    assert x.grad is not None and x.grad.shape == (4, 5)
     with torch.no_grad():
-        assert fused_matmul.fused_matmul_bias_relu(x, w, b, True).shape == (4, 3)
+        y0 = fused_matmul.fused_matmul_bias_relu(x, w, b, True)
+    assert y0.shape == (4, 3) and torch.equal(y0, y.detach())
