@@ -11,7 +11,9 @@ read just after) and that what comes out is right, stage by stage:
 
 - detect: batched Inception-v3 MultiBox detect through
   ``inference.run_detect_loop`` at full width (299×299, 256 priors, batch
-  32, bf16 backbone, f32 head), then a BatchNorm-folded pass;
+  32, bf16 backbone, f32 head), then a BatchNorm-folded pass and the
+  folded loop's ms a batch with the 1×1 units on the kernel, as plain
+  products and unfolded on cuDNN;
 - train: ``train.loop.train`` at ``Config(use_pallas=True)`` (the same
   model, G = 16 boxes, greedy matching through the matching kernel, the
   head through the matmul kernel forward and backward, RMSProp, EMA,
@@ -28,7 +30,10 @@ limit are printed beside them; loop times are on the host clock, ending in
 a synchronize. Tolerances: NMS indices, counts and scores exact; box
 kernels bitwise; matching assignments exact; matmul float32 rtol 1e-4 /
 atol 1e-4 (a sum over K = 6144 in another order), bfloat16 output rtol
-2e-2 / atol 2e-2; the matmul's backward float32 rtol 1e-4 / atol 1e-4;
+2e-2 / atol 2e-2, on every route of the matmul (skinny, tall f32, tall
+bf16, general) at its ragged edges, and a second launch on the same
+inputs bit-equal (the split along K is summed in a fixed order); the
+matmul's backward float32 rtol 1e-4 / atol 1e-4;
 the head's gradients through the kernel against the plain head rtol 1e-3
 / atol 1e-4 of the largest entry (forward sums in another order, then
 products over up to 6144 terms); one train step with kernels against one
@@ -62,7 +67,11 @@ from multibox_tpu_torch.device import resolve_device  # noqa: E402
 from multibox_tpu_torch import inference  # noqa: E402
 from multibox_tpu_torch.data import augment  # noqa: E402
 from multibox_tpu_torch.models import detector as detector_mod  # noqa: E402
-from multibox_tpu_torch.models.inception_v3 import ConvBN, fold_batch_norms  # noqa: E402
+from multibox_tpu_torch.models.inception_v3 import (  # noqa: E402
+    ConvBN,
+    fold_batch_norms,
+    fused_unit_shapes,
+)
 from multibox_tpu_torch.ops import kernels  # noqa: E402
 from multibox_tpu_torch.ops.kernels import (  # noqa: E402
     box_kernel,
@@ -119,6 +128,21 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 300) -> float:
+    """Host time a call of ``fn`` takes to enqueue its work, in µs: the host
+    clock over ``calls`` calls that the device keeps up with, no sync
+    between them (the loops that call these are host-bound)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -207,66 +231,147 @@ def check_nms(rng):
     }
 
 
+def matmul_inputs(rng, M, Kd, N, dtype):
+    """chip_smoke's data for B2: x = max(N(0, 1), 0), w = N(0, 1)/√K, b = N(0, 0.1)."""
+    x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32), dtype)
+    w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32), dtype)
+    b = dev(rng.normal(0, 0.1, N).astype(np.float32))
+    return x, w, b
+
+
+def matmul_bound(M, Kd, N, dtype):
+    item = 4 if dtype == torch.float32 else 2
+    return bound((M * Kd + Kd * N + M * N) * item + N * 4, 2.0 * M * Kd * N,
+                 "float32" if dtype == torch.float32 else "bfloat16")
+
+
+def time_matmul(x, w, b, relu, plain=True):
+    """(kernel ms, plain ms or None, library ms): the library call is
+    ``torch.addmm`` (+ ``relu_``), timed here and used nowhere in the port."""
+    ms = time_ms(lambda: fused_matmul.fused_matmul_bias_relu(x, w, b, relu))
+    plain_ms = time_ms(lambda: fused_matmul.fused_matmul_plain(x, w, b, relu)) if plain else None
+    bias = b.to(x.dtype)
+    if relu:
+        library_ms = time_ms(lambda: torch.addmm(bias, x, w).relu_())
+    else:
+        library_ms = time_ms(lambda: torch.addmm(bias, x, w))
+    return ms, plain_ms, library_ms
+
+
 def check_fused_matmul(rng):
-    """f32 rtol 1e-4 / atol 1e-4 (K = 6144 sums in another order than the
-    plain version's), bf16 output rtol 2e-2 / atol 2e-2. The entry of the
-    contract line sums the three head shapes of one batch of 32."""
-    head = (("Bottleneck", 2048, 2048, 96, True), ("Locations", 32, 6144, 1024, False),
-            ("Confidences", 32, 6144, 256, False))
-    other = (("folded_1x1_bf16", 39200, 288, 64, True, torch.bfloat16),
-             ("ragged", 33, 130, 70, True, torch.float32),
-             ("ragged_norelu", 33, 130, 70, False, torch.float32),
-             ("ragged_bf16", 65, 17, 129, False, torch.bfloat16),
-             ("one_row", 1, 5, 3, True, torch.float32))
+    """f32 rtol 1e-4 / atol 1e-4 (sums over up to K = 6144 in another order
+    than the plain version's), bf16 output rtol 2e-2 / atol 2e-2. Every
+    case is also launched twice and must give the same bits (the split
+    along K is summed in a fixed order). The entry of the contract line
+    sums the three head shapes of one batch of 32; the shapes list holds
+    each route's cases at its ragged edges, and ``folded_1x1_bf16_all`` the
+    distinct folded 1×1 units of a batch of 32."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    head = (("Bottleneck", 2048, 2048, 96, True, f32), ("Locations", 32, 6144, 1024, False, f32),
+            ("Confidences", 32, 6144, 256, False, f32))
+    main = {"Bottleneck", "Locations", "Confidences", "folded_1x1_bf16"}
+    other = (("folded_1x1_bf16", 39200, 288, 64, True, bf16),
+             # skinny: one row, the boundary at 64 / 65, uneven slices, N off the tile
+             ("skinny_m1", 1, 256, 128, True, f32),
+             ("skinny_m64_uneven_slices", 64, 1000, 200, True, f32),
+             ("m65_general", 65, 256, 128, True, f32),
+             ("skinny_n_ragged", 32, 6144, 1000, False, f32),
+             # tall f32: M, N off the tile, a short last slice
+             ("tall_f32_ragged", 2050, 2052, 100, True, f32),
+             # tall bf16: M, N off the tile; a split with a short last slice
+             ("bf16_ragged", 1000, 72, 40, True, bf16),
+             ("bf16_split_ragged", 500, 1288, 200, True, bf16),
+             ("bf16_split_k2048", 512, 2048, 384, True, bf16),
+             # general: K = 17 and other rows that are not 16 bytes
+             ("ragged", 33, 130, 70, True, f32),
+             ("ragged_norelu", 33, 130, 70, False, f32),
+             ("ragged_bf16", 65, 17, 129, False, bf16),
+             ("one_row", 1, 5, 3, True, f32))
     shapes, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": []}
-    for case in tuple(h + (torch.float32,) for h in head) + other:
-        name, M, Kd, N, relu, dtype = case
-        x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32), dtype)
-        w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32), dtype)
-        b = dev(rng.normal(0, 0.1, N).astype(np.float32))
+    for name, M, Kd, N, relu, dtype in head + other:
+        x, w, b = matmul_inputs(rng, M, Kd, N, dtype)
         got = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
+        again = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
         torch.cuda.synchronize()
         want = fused_matmul.fused_matmul_plain(x, w, b, relu)
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        tol = 1e-4 if dtype == f32 else 2e-2
         if got.dtype != x.dtype or got.shape != (M, N):
             raise AssertionError(f"fused_matmul[{name}]: wrong dtype or shape")
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"fused_matmul[{name}]: {m}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_matmul[{name}]: two launches differ")
         err = float((got.float() - want.float()).abs().max())
-        item = x.element_size()
-        dname = "float32" if dtype == torch.float32 else "bfloat16"
-        bound_ms, bound_by = bound((M * Kd + Kd * N + M * N) * item + N * 4,
-                                   2.0 * M * Kd * N, dname)
+        plan = fused_matmul._plan(M, Kd, N, dtype)
+        bound_ms, bound_by = matmul_bound(M, Kd, N, dtype)
         entry = {"name": name, "M": M, "K": Kd, "N": N, "relu": relu,
-                 "dtype": dname, "max_abs_err": err,
-                 "bound_ms": bound_ms, "bound_by": bound_by}
-        if name in ("Bottleneck", "Locations", "Confidences", "folded_1x1_bf16"):
-            entry["ms"] = time_ms(lambda: fused_matmul.fused_matmul_bias_relu(x, w, b, relu))
-            entry["plain_ms"] = time_ms(lambda: fused_matmul.fused_matmul_plain(x, w, b, relu))
+                 "dtype": str(dtype).replace("torch.", ""), "route": plan.route,
+                 "split_k": plan.split_k, "blocks": plan.blocks, "max_abs_err": err,
+                 "bit_equal_relaunch": True, "bound_ms": bound_ms, "bound_by": bound_by}
+        entry["ms"], entry["plain_ms"], entry["library_ms"] = time_matmul(x, w, b, relu)
+        entry["share_of_bound"] = bound_ms / entry["ms"]
+        if name in main:
             bias = b.to(dtype)
-            if relu:
-                entry["library_ms"] = time_ms(lambda: torch.addmm(bias, x, w).relu_())
-            else:
-                entry["library_ms"] = time_ms(lambda: torch.addmm(bias, x, w))
+            entry["host_us_per_call"] = {
+                "kernel": host_us(lambda: fused_matmul.fused_matmul_bias_relu(x, w, b, relu)),
+                "torch.addmm": host_us(lambda: torch.addmm(bias, x, w).relu_()),
+            }
         if name in ("Bottleneck", "Locations", "Confidences"):
             worst = max(worst, err)
             for key in ("ms", "plain_ms", "library_ms"):
                 totals[key] += entry[key]
             totals["bound"].append((bound_ms, bound_by))
         shapes.append(entry)
+    shapes.append(check_folded_units(rng))
+    routes = {e["route"] for e in shapes if "route" in e}
+    if routes != set(fused_matmul.ROUTES):
+        raise AssertionError(f"fused_matmul: routes exercised {routes}")
+    bound_sum = sum(t for t, _ in totals["bound"])
     return {
         "name": "fused_matmul", "route": "cuda",
         "source": "multibox_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "multibox_tpu/ops/pallas/fused_matmul.py:162",
         "max_abs_err": worst, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": sum(t for t, _ in totals["bound"]),
-        "bound_by": max(totals["bound"])[1],
-        "library_ms": totals["library_ms"],
-        "tolerance": "float32 rtol 1e-4 atol 1e-4, bfloat16 rtol 2e-2 atol 2e-2",
+        "bound_ms": bound_sum, "bound_by": max(totals["bound"])[1],
+        "library_ms": totals["library_ms"], "share_of_bound": bound_sum / totals["ms"],
+        "tolerance": "float32 rtol 1e-4 atol 1e-4, bfloat16 rtol 2e-2 atol 2e-2; "
+                     "a second launch bit-equal",
         "shape": "sum of the head's three layers at batch 32 (float32)",
         "shapes": shapes,
     }
+
+
+def check_folded_units(rng, batch=32):
+    """Every distinct 1×1 unit of the BatchNorm-folded backbone at batch 32
+    (bf16, ReLU), enumerated from the model: each against the plain version
+    and timed with its library call; the entry sums the distinct shapes."""
+    units = fused_unit_shapes(batch)
+    count = {}
+    for _, M, Kd, N in units:
+        count[(M, Kd, N)] = count.get((M, Kd, N), 0) + 1
+    parts, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (M, Kd, N), units_of_shape in sorted(count.items()):
+        x, w, b = matmul_inputs(rng, M, Kd, N, torch.bfloat16)
+        got = fused_matmul.fused_matmul_bias_relu(x, w, b, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), fused_matmul.fused_matmul_plain(x, w, b).float(),
+                                   rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"fused_matmul[folded {M}x{Kd}x{N}]: {m}")
+        ms, _, library_ms = time_matmul(x, w, b, True, plain=False)
+        bound_ms, bound_by = matmul_bound(M, Kd, N, torch.bfloat16)
+        plan = fused_matmul._plan(M, Kd, N, torch.bfloat16)
+        parts.append({"M": M, "K": Kd, "N": N, "units": units_of_shape, "route": plan.route,
+                      "split_k": plan.split_k, "ms": ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms})
+        tot["ms"] += ms
+        tot["library_ms"] += library_ms
+        tot["bound_ms"] += bound_ms
+    return {"name": "folded_1x1_bf16_all", "dtype": "bfloat16", "relu": True,
+            "route": "tall_bf16", "split_k": max(p["split_k"] for p in parts),
+            "distinct_shapes": len(parts), "units": len(units), **tot,
+            "share_of_bound": tot["bound_ms"] / tot["ms"],
+            "note": "sums over the distinct shapes, each once", "parts": parts}
 
 
 def check_boxes(rng):
@@ -335,6 +440,8 @@ def match_cases(rng):
     gt, num, pri = world(3, 24, 10)
     num[:] = 24
     cases.append(("g_above_p", gt, num, pri))
+    # a batch past two blocks an SM: several images share a block
+    cases.append(("packed_images", *world(600, 16, 256)))
     return cases
 
 
@@ -351,7 +458,8 @@ def match_work(num, G, P):
 
 def check_match(rng):
     """B4: assignments exact against the plain version on every case. The
-    entry is timed at the train slice's shape (B=32, G=16, P=256)."""
+    entry is timed at the train slice's shape (B=32, G=16, P=256), and the
+    block route's G = 64 / P = 512 beside it."""
     cases = match_cases(rng)
     for name, gt, num, pri in cases:
         tg, tn, tp = dev(gt), dev(num), dev(pri)
@@ -361,6 +469,12 @@ def check_match(rng):
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"match[{name}]: assignments differ at {bad}")
+    _, gt64, num64, pri64 = cases[1]
+    tg, tn, tp = dev(gt64), dev(num64), dev(pri64)
+    g64 = {"shape": "B=8 G=64 P=512",
+           "ms": time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp)),
+           "rounds_slowest_image": int(np.minimum(num64, 512).max()),
+           "rounds_run": int(np.minimum(num64, 512).sum())}
     _, gt, num, pri = cases[0]
     tg, tn, tp = dev(gt), dev(num), dev(pri)
     ms = time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp))
@@ -377,6 +491,8 @@ def check_match(rng):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "tolerance": "assignments exact", "shape": f"B={B} G={G} P={P}",
         "rounds_run": int(np.minimum(num, P).sum()),
+        "rounds_slowest_image": int(np.minimum(num, P).max()),
+        "g64_p512": g64,
         "cases": [c[0] for c in cases],
     }
 
@@ -632,10 +748,33 @@ def phase_detect(rng, gen, card_line, profile_it=False):
     return counts, variables, priors
 
 
+def detect_ms_per_batch(model, variables, data, tpriors, cfg):
+    """ms a batch of preprocess → detector → postprocess → packed copy to
+    the host, on the host clock around the batches, ending in a
+    synchronize; one warm-up batch first."""
+    def one(batch):
+        with torch.no_grad():
+            images = preprocess_eval(dev(batch["images"]), cfg.input_size)
+            loc, conf = inference.detector_mod.apply(model, variables, images)
+            return inference._pack_dets(inference.postprocess(loc, conf, tpriors, cfg)).cpu()
+
+    one(data[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in data:
+        one(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(data)
+
+
 def phase_detect_folded(rng, variables, priors):
     """BN folded into the convolutions: the bf16 1×1 units run through the
     matmul kernel. Logits against the unfolded model's, atol 0.1 (bf16
-    backbone; the fold moves where values are rounded)."""
+    backbone; the fold moves where values are rounded). Then ms a batch
+    over 4 batches of 32: folded with the units on the kernel
+    (``use_pallas=True``), folded with the units as plain ``torch``
+    products (``use_pallas=None``: NMS kernel only), and unfolded (the
+    units as cuDNN convolutions and BatchNorm, ``use_pallas=True``)."""
     cfg = Config(use_pallas=True, batch_size=8)
     P = cfg.num_priors
     folded_model = inference.build_model(cfg, P, folded=True, device=DEV)
@@ -668,8 +807,21 @@ def phase_detect_folded(rng, variables, priors):
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if worst > 0.1 or worst > 0.2 * scale:
         raise AssertionError(f"folded vs unfolded outputs differ by {worst} (scale {scale})")
+
+    data32 = make_dataset(rng, batches=4, batch=32, valid_last=32)
+    cfg32 = Config(use_pallas=True)
+    cfg32_plain_units = Config(use_pallas=None)
+    plain_units_model = inference.build_model(cfg32_plain_units, P, folded=True, device=DEV)
+    runs = {"folded_units_on_kernel": (folded_model, folded_vars, cfg32),
+            "folded_units_plain_torch": (plain_units_model, folded_vars, cfg32_plain_units),
+            "unfolded_units_on_cudnn": (plain_model, variables, cfg32)}
+    loops = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):  # A B C C B A: the host drifts
+        m, v, c = runs[name]
+        loops[name].append(detect_ms_per_batch(m, v, data32, tpriors, c))
     emit({"phase": "detect_folded", "ok": True, "fused_1x1_units": fused_units,
-          "max_abs_err_vs_unfolded": worst, "output_abs_max": scale, "launches": counts})
+          "max_abs_err_vs_unfolded": worst, "output_abs_max": scale, "launches": counts,
+          "ms_per_batch_of_32": loops, "batches": len(data32)})
 
 
 # --------------------------------------------------------------------------

@@ -457,6 +457,29 @@ def feature_grid(input_size: int, endpoint: str = "Mixed_7c") -> int:
     raise ValueError(f"unknown endpoint: {endpoint!r}")
 
 
+def fused_unit_shapes(batch: int, input_size: int = 299,
+                      compute_dtype: torch.dtype = torch.bfloat16):
+    """``(name, M, K, N)`` of every 1×1 unit of the folded backbone, in
+    forward order: the matmul ``[M = batch·H·W, K = Cin] × [K, N = Cout]``
+    each runs as. Found by a forward on the ``meta`` device (shapes only,
+    no data, no weights)."""
+    model = InceptionV3(compute_dtype=compute_dtype, folded=True, use_pallas=True)
+    shapes, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, FusedConv1x1):
+            def record(mod, args, out, name=name):
+                b, h, w, c = args[0].shape
+                shapes.append((name, b * h * w, c, mod.features))
+            hooks.append(mod.register_forward_hook(record))
+    tensors = {n: torch.empty(p.shape, device="meta") for n, p in model.named_parameters()}
+    with torch.no_grad():
+        torch.func.functional_call(
+            model, tensors, (torch.empty(batch, input_size, input_size, 3, device="meta"),))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
 def preprocess_slim(images_uint8: torch.Tensor) -> torch.Tensor:
     """slim input scaling: uint8 [0,255] → float [−1, 1]."""
     return (images_uint8.to(torch.float32) / 255.0 - 0.5) * 2.0

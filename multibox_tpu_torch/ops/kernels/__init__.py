@@ -171,8 +171,9 @@ def load_library():
         lib.mbx_box_encode.argtypes = [p, p, p, ll, ll, p]
         # (boxes, scores, sel_idx, sel_scores, B, P, K, iou_thr, score_thr, stream)
         lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, f, p]
-        # (x, w, b, out, M, K, N, relu, is_bf16, stream)
-        lib.mbx_fused_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        # (x, w, b, out, workspace, M, K, N, relu, is_bf16, route, split,
+        #  kslice, tile_n, stream)
+        lib.mbx_fused_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         # (gt, num_gt, priors, out, scratch, B, G, P, stream)
         lib.mbx_greedy_match.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.mbx_greedy_match_scratch_floats.argtypes = [i, i]
@@ -195,6 +196,9 @@ def current_stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg) unless ``cond``; with ``args``, ``msg`` is a
+    ``str.format`` template filled only when it raises (a wrapper's checks
+    run on every launch)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)

@@ -265,6 +265,22 @@ def test_kernels_match_their_plain_versions_on_the_card():
     torch.testing.assert_close(
         fused_matmul.fused_matmul_bias_relu(x, w, b, True),
         fused_matmul.fused_matmul_plain(x, w, b, True), rtol=1e-4, atol=1e-4)
+    # one small case per route of the matmul, each launched twice: bit-equal
+    for M, Kd, N, dtype, route in ((8, 256, 200, torch.float32, "skinny"),
+                                   (600, 512, 100, torch.float32, "tall_f32"),
+                                   (300, 64, 48, torch.bfloat16, "tall_bf16"),
+                                   (256, 1024, 192, torch.bfloat16, "tall_bf16"),
+                                   (65, 17, 129, torch.bfloat16, "general")):
+        plan = fused_matmul._plan(M, Kd, N, dtype)
+        assert plan.route == route
+        xr = t(np.maximum(rng.normal(0, 1, (M, Kd)), 0)).to(dev, dtype)
+        wr = t(rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).to(dev, dtype)
+        br = t(rng.normal(0, 0.1, N)).to(dev)
+        got = fused_matmul.fused_matmul_bias_relu(xr, wr, br, True)
+        assert torch.equal(got, fused_matmul.fused_matmul_bias_relu(xr, wr, br, True))
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), fused_matmul.fused_matmul_plain(
+            xr, wr, br, True).float(), rtol=tol, atol=tol)
     off, pri = t(rng.normal(0, 0.3, (3, 77, 4))).to(dev), t(rng.uniform(0, 1, (77, 4))).to(dev)
     assert torch.equal(box_kernel.decode_boxes_cuda(off, pri),
                        box_kernel.decode_boxes_plain(off, pri[None]))
@@ -274,6 +290,12 @@ def test_kernels_match_their_plain_versions_on_the_card():
     n = torch.tensor([16, 3, 0, 9, 40], dtype=torch.int32, device=dev)
     assert torch.equal(match_kernel.greedy_match_cuda(gt, n, boxes[0]),
                        match_kernel.greedy_match_plain(gt, n, boxes[0]))
+    # G = 64: two rows a lane in the rounds warp, P = 512
+    gt = t(np.sort(rng.uniform(0, 1, (3, 64, 2, 2)), axis=2).reshape(3, 64, 4)).to(dev)
+    pri = t(np.sort(rng.uniform(0, 1, (512, 2, 2)), axis=1).reshape(512, 4)).to(dev)
+    n = torch.tensor([64, 10, 0], dtype=torch.int32, device=dev)
+    assert torch.equal(match_kernel.greedy_match_cuda(gt, n, pri),
+                       match_kernel.greedy_match_plain(gt, n, pri))
     xg, wg, bg = (a.clone().requires_grad_(True) for a in (x, w, b))
     grads = torch.autograd.grad(fused_matmul.fused_matmul_bias_relu(xg, wg, bg).sum(),
                                 (xg, wg, bg))
