@@ -169,9 +169,10 @@ def random_boxes(rng, shape, min_size=0.02, max_size=0.6):
 # --------------------------------------------------------------------------
 
 
-def check_nms(rng):
-    """Indices, counts and scores exact. Returns the entry of the contract
-    line, timed at the main path's shape (B=32, P=256, K=100)."""
+def nms_cases(rng):
+    """(name, boxes [B, P, 4], scores [B, P], K, iou threshold, score
+    threshold) for B1: ten random and degenerate cases, then the sorted scan's
+    edges."""
     cases = []
     for name, B, P, Kout in (("p16", 3, 16, 32), ("main", 32, 256, 100),
                              ("p1024", 8, 1024, 100), ("p9468", 4, 9468, 200)):
@@ -193,7 +194,65 @@ def check_nms(rng):
     near = np.concatenate([boxes, np.clip(jit, 0, 1)], axis=1)
     cases.append(("near_threshold", near, rng.uniform(0, 1, near.shape[:2]).astype(np.float32),
                   100, 0.9, 0.0))
+    # the sorted scan's edges: +0.0 and -0.0 tie and break by index
+    zeros = rng.choice(np.array([0.0, -0.0, 0.25, -0.25], np.float32), (4, 256))
+    cases.append(("signed_zeros", boxes, zeros, 100, 0.5, float("-inf")))
+    cases.append(("signed_zeros_at_threshold", boxes, zeros, 100, 0.5, 0.0))
+    odd = scores.copy()
+    odd[:, ::5], odd[:, 1::7], odd[:, 2::11] = np.nan, np.inf, -np.inf
+    cases.append(("nan_and_inf", boxes, odd, 100, 0.5, float("-inf")))
+    cases.append(("nan_and_inf_thresholded", boxes, odd, 100, 0.5, 0.5))
+    cases.append(("all_equal", boxes, np.full((4, 256), 0.5, np.float32), 100, 0.5, 0.0))
+    cases.append(("p1", boxes[:, :1], scores[:, :1], 5, 0.5, float("-inf")))
+    cases.append(("k_equals_p", boxes, scores, 256, 0.5, float("-inf")))
+    cases.append(("k_above_p", boxes, scores, 300, 0.7, float("-inf")))
+    cases.append(("p33", boxes[:, :33], scores[:, :33], 100, 0.5, 0.0))
+    cases.append(("p257", random_boxes(rng, (4, 257)), rng.uniform(0, 1, (4, 257))
+                  .astype(np.float32), 100, 0.5, 0.0))
+    # a dense cluster: most candidates suppressed, many chunks before K kept
+    centre = random_boxes(rng, (4, 1), min_size=0.3, max_size=0.5)
+    cluster = np.clip(centre + rng.normal(0, 0.01, (4, 1024, 4)), 0, 1).astype(np.float32)
+    cases.append(("dense_cluster", cluster, rng.uniform(0, 1, (4, 1024)).astype(np.float32),
+                  100, 0.5, 0.0))
+    return cases
 
+
+def nms_entry(name, b, s, Kout, iou, thr, plain=False):
+    """Time B1 on one case; the work its data needs (``chunks_run`` from the
+    kernel's algorithm in numpy, checked against the kernel's output, and the
+    IoU tests greedy NMS needs for this output, from which the bound)."""
+    tb, ts = dev(b), dev(s)
+    ms = time_ms(lambda: nms_kernel.nms_select(tb, ts, Kout, iou, thr))
+    sel_idx, _ = nms_kernel.nms_select(tb, ts, Kout, iou, thr)
+    emu_idx, _, chunks = nms_kernel.sorted_scan_emulation(b, s, Kout, iou, thr)
+    if not np.array_equal(emu_idx, sel_idx.cpu().numpy()):
+        raise AssertionError(f"nms[{name}]: the numpy emulation differs from the kernel")
+    B, P = s.shape
+    nbytes = B * P * 20 + B * Kout * 8
+    # the bound counts the work the function needs: each live candidate up to the
+    # last one the selection reaches against the boxes kept before it, up to the
+    # first that suppresses it, ~25 f32 operations a test
+    tests = nms_kernel.greedy_iou_tests(b, s, sel_idx.cpu().numpy(), iou, thr)
+    bound_ms, bound_by = bound(nbytes, tests * 25, "float32")
+    # the rounds model, for comparison: the spec's rounds (one per selected box, +1
+    # that finds nothing unless all K slots fill), each testing every box
+    rounds = int(torch.clamp((sel_idx >= 0).sum(1) + 1, max=Kout).sum())
+    entry = {"shape": f"B={B} P={P} K={Kout}", "ms": ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "share_of_bound": bound_ms / ms, "iou_tests": tests,
+             "bound_ms_rounds_model": bound(nbytes, rounds * P * 25, "float32")[0],
+             "rounds_run": rounds, "chunks_run": int(chunks.sum()),
+             "chunks_slowest_image": int(chunks.max())}
+    if plain:
+        entry["plain_ms"] = time_ms(
+            lambda: nms_kernel.nms_batched_plain(tb, ts, Kout, iou, thr), reps=5, warmup=1)
+    return entry
+
+
+def check_nms(rng):
+    """Indices, counts and scores exact on every case. Returns the entry of
+    the contract line, timed at the main path's shape (B=32, P=256, K=100),
+    with the design shapes P = 1,024 (B=8) and P = 9,468 (B=4, K=200)."""
+    cases = nms_cases(rng)
     worst = 0.0
     for name, b, s, Kout, iou, thr in cases:
         tb, ts = dev(b), dev(s)
@@ -208,25 +267,24 @@ def check_nms(rng):
         if not torch.equal(got[3].to(torch.int64), (want_idx >= 0).sum(1)):
             raise AssertionError(f"nms[{name}]: counts differ")
         worst = max(worst, float((got[1] - want_scores).abs().max()))
+    # a kept list that does not fit beside the sort keys is refused, not launched
+    try:
+        nms_kernel.nms_select(torch.zeros(1, 9468, 4, device=DEV),
+                              torch.zeros(1, 9468, device=DEV), 9468)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("nms: a kept list past shared memory was taken")
 
-    _, b, s, Kout, iou, thr = cases[1]
-    tb, ts = dev(b), dev(s)
-    ms = time_ms(lambda: nms_kernel.nms_select(tb, ts, Kout, iou, thr))
-    plain_ms = time_ms(lambda: nms_kernel.nms_batched_plain(tb, ts, Kout, iou, thr), reps=5, warmup=1)
-    sel_idx, _ = nms_kernel.nms_select(tb, ts, Kout, iou, thr)
-    B, P = s.shape
-    # work this data needs: one round per selected box (+1 that finds
-    # nothing, unless all K slots fill), each ~25 f32 operations per box
-    rounds = int(torch.clamp((sel_idx >= 0).sum(1) + 1, max=Kout).sum())
-    bound_ms, bound_by = bound(B * P * 20 + B * Kout * 8, rounds * P * 25, "float32")
+    by_name = {c[0]: c for c in cases}
+    main = nms_entry(*by_name["main"], plain=True)
     return {
         "name": "nms", "route": "cuda",
         "source": "multibox_tpu_torch/csrc/nms.cu",
         "replaces": "multibox_tpu/ops/pallas/nms_kernel.py:109",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "tolerance": "indices, counts and scores exact",
-        "shape": f"B={B} P={P} K={Kout}", "rounds_run": rounds,
+        "max_abs_err": worst, "library_ms": None,
+        "tolerance": "indices, counts and scores exact", **main,
+        "p1024": nms_entry(*by_name["p1024"]), "p9468": nms_entry(*by_name["p9468"]),
         "cases": [c[0] for c in cases],
     }
 
@@ -374,13 +432,21 @@ def check_folded_units(rng, batch=32):
             "note": "sums over the distinct shapes, each once", "parts": parts}
 
 
+def box_bound(kind, B, P):
+    n = B * P * 4
+    return bound(2 * n * 4 + P * 16, n * (3 if kind == "box_decode" else 1), "float32")
+
+
 def check_boxes(rng):
-    """Bitwise: add-then-clip and subtract are exact in f32."""
+    """Bitwise: add-then-clip and subtract are exact in f32. A view that
+    does not start on a 16-byte boundary is refused. Timed at the main
+    paths' shape (B=32, P=256) and at the SSD prior count (B=32, P=9,468)."""
     out = []
     for kind in ("box_decode", "box_encode"):
         worst = 0.0
         for B, P, prior_shape in ((32, 256, (256, 4)), (3, 77, (1, 77, 4)),
-                                  (2, 9468, (9468, 4)), (1, 1, (1, 4))):
+                                  (2, 9468, (9468, 4)), (32, 9468, (9468, 4)),
+                                  (1, 1, (1, 4)), (70000, 1, (1, 4))):
             a = dev(rng.normal(0, 0.3, (B, P, 4)).astype(np.float32))
             pri = dev(random_boxes(rng, (P,)).reshape(prior_shape))
             if kind == "box_decode":
@@ -395,27 +461,37 @@ def check_boxes(rng):
                 if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                     raise AssertionError(f"box_encode B={B} P={P} differs")
             worst = max(worst, float((got - want).abs().max()))
-        B, P = 32, 256
-        a = dev(rng.normal(0, 0.3, (B, P, 4)).astype(np.float32))
-        pri = dev(random_boxes(rng, (P,)))
-        if kind == "box_decode":
-            ms = time_ms(lambda: box_kernel.decode_boxes_cuda(a, pri, True))
-            plain_ms = time_ms(lambda: box_kernel.decode_boxes_plain(a, pri[None], True))
-            library_ms = None  # add then clamp: no single call
-            line = "multibox_tpu/ops/pallas/box_kernel.py:64"
+        fn = box_kernel.decode_boxes_cuda if kind == "box_decode" else box_kernel.encode_boxes_cuda
+        shifted = torch.zeros(2 * 8 * 4 + 1, device=DEV)[1:].view(2, 8, 4)
+        try:
+            fn(shifted, torch.zeros(8, 4, device=DEV))
+        except ValueError:
+            pass
         else:
-            ms = time_ms(lambda: box_kernel.encode_boxes_cuda(a, pri))
-            plain_ms = time_ms(lambda: box_kernel.encode_boxes_plain(a, pri[None]))
-            library_ms = time_ms(lambda: torch.sub(a, pri[None]))
-            line = "multibox_tpu/ops/pallas/box_kernel.py:75"
-        n = B * P * 4
-        bound_ms, bound_by = bound(2 * n * 4 + P * 16, n * (3 if kind == "box_decode" else 1), "float32")
+            raise AssertionError(f"{kind}: a view off the 16-byte boundary was taken")
+
+        timed = {}
+        for B, P in ((32, 256), (32, 9468)):
+            a = dev(rng.normal(0, 0.3, (B, P, 4)).astype(np.float32))
+            pri = dev(random_boxes(rng, (P,)))
+            if kind == "box_decode":
+                ms = time_ms(lambda: box_kernel.decode_boxes_cuda(a, pri, True))
+                plain_ms = time_ms(lambda: box_kernel.decode_boxes_plain(a, pri[None], True))
+                library_ms = None  # add then clamp: no single call
+            else:
+                ms = time_ms(lambda: box_kernel.encode_boxes_cuda(a, pri))
+                plain_ms = time_ms(lambda: box_kernel.encode_boxes_plain(a, pri[None]))
+                library_ms = time_ms(lambda: torch.sub(a, pri[None]))
+            bound_ms, bound_by = box_bound(kind, B, P)
+            timed[P] = {"shape": f"B={B} P={P}", "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": bound_ms / ms}
+        line = "multibox_tpu/ops/pallas/box_kernel.py:" + ("64" if kind == "box_decode" else "75")
         out.append({
             "name": kind, "route": "cuda",
             "source": "multibox_tpu_torch/csrc/box.cu", "replaces": line,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "tolerance": "bitwise", "shape": f"B={B} P={P}",
+            "max_abs_err": worst, **timed[256], "p9468": timed[9468],
+            "tolerance": "bitwise; a misaligned view refused",
         })
     return out
 

@@ -166,11 +166,13 @@ def load_library():
                        ctypes.c_float)
         lib.mbx_error_string.argtypes = [i]
         lib.mbx_error_string.restype = ctypes.c_char_p
-        # (a, priors, out, n, period, clip, stream)
-        lib.mbx_box_decode.argtypes = [p, p, p, ll, ll, i, p]
-        lib.mbx_box_encode.argtypes = [p, p, p, ll, ll, p]
-        # (boxes, scores, sel_idx, sel_scores, B, P, K, iou_thr, score_thr, stream)
-        lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, f, p]
+        u = ctypes.c_uint
+        # (a, priors, out, P, rows, grid_x, grid_y, clip, stream)
+        lib.mbx_box_decode.argtypes = [p, p, p, i, ll, u, u, i, p]
+        lib.mbx_box_encode.argtypes = [p, p, p, i, ll, u, u, p]
+        # (boxes, scores, sel_idx, sel_scores, B, P, K, iou_thr, thr_mid,
+        #  thr_tie_up, score_thr, stream)
+        lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, ctypes.c_double, i, f, p]
         # (x, w, b, out, workspace, M, K, N, relu, is_bf16, route, split,
         #  kslice, tile_n, stream)
         lib.mbx_fused_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]

@@ -6,16 +6,26 @@ package (``multibox_tpu/ops/pallas/box_kernel.py``). Semantics identical to
 parameterization); add-then-clip and subtract are exact in f32, so the
 kernel's result is bitwise the plain version's.
 
-Bound on this card: bytes. Each element is read twice (offset, prior) and
-written once for one flop. The design therefore moves nothing it need not:
-one thread per element with coalesced accesses, and the priors are indexed
-``i % (P·4)`` inside the kernel so their broadcast over the batch is never
-written out (the ``[P, 4]`` priors stay in L2 across the batch).
+Bound on this card: bytes. Each box is read twice (offset, prior: 32 B)
+and written once (16 B) for four flops. The first version gave each thread one
+float and found its prior with a 64-bit ``i % (P·4)``, which the card
+computes in software, dozens of instructions an element. Now each thread
+takes one whole box with 16-byte (``float4``) loads and stores, and a 2-D
+grid (:func:`_plan`: x over the P boxes of a prior set, y over the rows of
+the leading dimensions) makes the prior's index the thread's own x index and
+a row's offset a multiply, with no division; a thread loads its prior once
+for every row it visits. The broadcast of the priors over the batch is
+never written out. ``float4`` needs 16-byte alignment, so the wrapper
+refuses a tensor that does not start on a 16-byte boundary (there is no
+scalar path). At the detect batch (32 × 256 boxes) the floor is the launch
+and one round trip to memory, not the bytes.
 
 Source: ``csrc/box.cu``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -35,8 +45,34 @@ def encode_boxes_plain(gt: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
     return gt - priors
 
 
-def _check(a: torch.Tensor, priors: torch.Tensor, what: str) -> int:
-    """Validate a kernel call; returns the broadcast period (prior numel)."""
+THREADS = 256  # a block's threads, one box each (csrc/box.cu kThreads)
+MAX_GRID_Y = 65535
+
+
+class Plan(NamedTuple):
+    """A launch of ``csrc/box.cu``: ``rows`` × ``P`` boxes, blocks of
+    :data:`THREADS` on a ``grid`` (x over the P boxes of a prior set, y over
+    the rows, each y block visiting rows ``y, y + grid[1], ...``)."""
+
+    P: int
+    rows: int
+    grid: Tuple[int, int]
+
+
+def _plan(n_boxes: int, period_boxes: int) -> Plan:
+    """The grid for ``n_boxes`` boxes over priors of ``period_boxes`` boxes:
+    one thread a box, one y block a row up to the grid's y limit. Indices
+    stay 32-bit within a row; a row's offset is a 64-bit multiply in the
+    kernel, so no size needs another path."""
+    K.require(period_boxes > 0 and n_boxes % period_boxes == 0,
+              "box kernel: {} boxes are not rows of {} priors", n_boxes, period_boxes)
+    K.require(period_boxes < 2**31, "box kernel: {} priors are too many", period_boxes)
+    rows = n_boxes // period_boxes
+    return Plan(period_boxes, rows, (-(-period_boxes // THREADS), max(1, min(rows, MAX_GRID_Y))))
+
+
+def _check(a: torch.Tensor, priors: torch.Tensor, what: str) -> Plan:
+    """Validate a kernel call; returns its launch plan."""
     K.require(priors.device == a.device,
               f"{what}: priors on {priors.device}, boxes on {a.device}")
     K.require(a.dtype == torch.float32 and priors.dtype == torch.float32,
@@ -44,6 +80,9 @@ def _check(a: torch.Tensor, priors: torch.Tensor, what: str) -> int:
     K.require(a.dim() >= 1 and a.shape[-1] == 4, f"{what}: boxes must be [..., 4]")
     K.require(a.is_contiguous() and priors.is_contiguous(),
               f"{what}: tensors must be contiguous")
+    # float4 loads and stores: one box is 16 bytes, and so must its address be
+    K.require(a.data_ptr() % 16 == 0 and priors.data_ptr() % 16 == 0,
+              "{}: boxes and priors must start on a 16-byte boundary", what)
     # priors broadcast over LEADING dims only: [P, 4], [1, P, 4], or a.shape.
     core = list(priors.shape)
     while core and core[0] == 1 and len(core) > 1:
@@ -52,36 +91,46 @@ def _check(a: torch.Tensor, priors: torch.Tensor, what: str) -> int:
               and priors.numel() > 0,
               f"{what}: priors {tuple(priors.shape)} do not broadcast over the "
               f"leading dims of {tuple(a.shape)}")
-    return priors.numel()
+    return _plan(a.numel() // 4, priors.numel() // 4)
+
+
+def _require_aligned(out: torch.Tensor, what: str) -> None:
+    K.require(out.data_ptr() % 16 == 0, "{}: output not on a 16-byte boundary", what)
 
 
 def decode_boxes_cuda(
     offsets: torch.Tensor, priors: torch.Tensor, clip: bool = True
 ) -> torch.Tensor:
     """``prior + offset`` (+ clip to [0, 1]) in one pass. ``offsets``
-    ``[..., P, 4]`` f32, ``priors`` ``[P, 4]`` or ``[1, P, 4]`` f32."""
+    ``[..., P, 4]`` f32, ``priors`` ``[P, 4]`` or ``[1, P, 4]`` f32, both
+    starting on a 16-byte boundary."""
     if not offsets.is_cuda:
         return decode_boxes_plain(offsets, priors, clip)
-    period = _check(offsets, priors, "decode_boxes_cuda")
+    plan = _check(offsets, priors, "decode_boxes_cuda")
     out = torch.empty_like(offsets)
-    lib = K.load_library()
-    err = lib.mbx_box_decode(offsets.data_ptr(), priors.data_ptr(), out.data_ptr(),
-                             offsets.numel(), period, int(bool(clip)),
-                             K.current_stream_ptr())
-    K.check_launch(err, "mbx_box_decode")
-    K.LAUNCHES["box_decode"] += 1
+    _require_aligned(out, "decode_boxes_cuda")
+    if plan.rows:
+        lib = K.load_library()
+        err = lib.mbx_box_decode(offsets.data_ptr(), priors.data_ptr(), out.data_ptr(),
+                                 plan.P, plan.rows, *plan.grid, int(bool(clip)),
+                                 K.current_stream_ptr())
+        K.check_launch(err, "mbx_box_decode")
+        K.LAUNCHES["box_decode"] += 1
     return out
 
 
 def encode_boxes_cuda(gt: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
-    """``gt − prior``; same broadcasting as :func:`decode_boxes_cuda`."""
+    """``gt − prior``; same broadcasting and alignment as
+    :func:`decode_boxes_cuda`."""
     if not gt.is_cuda:
         return encode_boxes_plain(gt, priors)
-    period = _check(gt, priors, "encode_boxes_cuda")
+    plan = _check(gt, priors, "encode_boxes_cuda")
     out = torch.empty_like(gt)
-    lib = K.load_library()
-    err = lib.mbx_box_encode(gt.data_ptr(), priors.data_ptr(), out.data_ptr(),
-                             gt.numel(), period, K.current_stream_ptr())
-    K.check_launch(err, "mbx_box_encode")
-    K.LAUNCHES["box_encode"] += 1
+    _require_aligned(out, "encode_boxes_cuda")
+    if plan.rows:
+        lib = K.load_library()
+        err = lib.mbx_box_encode(gt.data_ptr(), priors.data_ptr(), out.data_ptr(),
+                                 plan.P, plan.rows, *plan.grid, K.current_stream_ptr())
+        K.check_launch(err, "mbx_box_encode")
+        K.LAUNCHES["box_encode"] += 1
     return out

@@ -7,14 +7,25 @@ package's ``ops.nms._nms_jnp``: select boxes in descending score order
 exceeds ``iou_threshold``; boxes below ``score_threshold`` are never
 selected; empty slots carry index −1 and score −1.
 
-Bound on this card: the K dependent rounds, not bytes (B=32, P=256 moves
-about 164 KB) and not flops. The design gives one thread block to each
-image, keeps live scores and coordinates in shared memory for all rounds,
-reduces the (max score, lowest index) pair with warp shuffles and two
-barriers a round, and stops at the first round with nothing live. The TPU
-kernel's shape (8 images on the sublane axis, 128-lane padding, masked row
-sums instead of indexing) answered that compiler's limits and is not
-carried over.
+Bound on this card: neither bytes (B=32, P=256 moves about 164 KB) nor
+flops, but the chain of dependent steps. The first version ran the spec's K
+rounds literally, a block-wide arg-max and two barriers each, about 1 µs a
+round. Only winners suppress and they come out in (score descending, index
+ascending) order, so the kernel now stages the scores (and the boxes, when
+they fit in shared memory) in one round trip, sorts the live boxes by that
+order once (a bitonic sort of 64-bit keys: the score's order-preserving
+bits with −0.0 made +0.0, then the complemented index; the strides within a
+warp in registers), and walks them in chunks of 32: each candidate is tested
+against the boxes kept so far and against the chunk's earlier candidates by
+all the block's threads at once, then one warp resolves the chunk in order
+with ballots. Two block barriers a chunk (5-6 chunks at the detect shape)
+instead of two a selected box. The IoU threshold test is the plain
+version's rounded division decided without dividing
+(:func:`threshold_split`). It stops at K kept or at the first dead
+candidate. :func:`sorted_scan_emulation` is the same algorithm step by step
+in numpy, for the CPU tests. The TPU kernel's shape (8 images on the sublane
+axis, 128-lane padding, masked row sums instead of indexing) answered that
+compiler's limits and is not carried over.
 
 :func:`nms_batched_plain` is the plain PyTorch version: same arithmetic op
 for op, so indices and scores agree exactly.
@@ -24,13 +35,27 @@ Source: ``csrc/nms.cu``.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from multibox_tpu_torch.ops import boxes as box_ops
 from multibox_tpu_torch.ops import kernels as K
 
-# 20 B of shared memory per box, within the 227 KB a block may use.
-MAX_BOXES = (227 * 1024 - 512) // 20
+# The sort keys (8 B a box, P padded to a power of two) live in shared
+# memory: 128 KiB at this many boxes.
+MAX_BOXES = 16384
+CHUNK = 32  # csrc/nms.cu kChunk
+SMEM_LIMIT = 227 * 1024 - 16 * 1024  # csrc/nms.cu kSmemLimit
+
+
+def kept_list_fits(P: int, max_outputs: int) -> bool:
+    """Do the sort keys (P padded to a power of two, at least 64) and the
+    kept list (min(K, P) boxes of 16 B) fit in one block's shared memory?
+    csrc/nms.cu's ``smem_bytes`` without the staged boxes."""
+    npad = max(64, 1 << (max(P, 1) - 1).bit_length())
+    return npad * 8 + min(max_outputs, P) * 16 <= SMEM_LIMIT
 
 
 def nms_batched_plain(
@@ -70,6 +95,134 @@ def nms_batched_plain(
     return sel_idx, sel_scores
 
 
+@functools.lru_cache(maxsize=64)
+def threshold_split(iou_threshold: float):
+    """``(mid, tie_up)`` such that, for inter >= 0 and u > 0 in float32,
+    ``fl(inter / u) > thr`` (thr = ``iou_threshold`` as float32, fl rounding
+    to nearest even) exactly when ``inter > mid * u`` or, with ``tie_up``,
+    ``inter == mid * u``, in double precision, where ``mid * u`` is exact.
+    ``mid`` is the midpoint between thr and the next float32 up, where the
+    rounding of the quotient changes sides; ``tie_up`` says whether a
+    quotient on it rounds up (the float above is the even one). The kernel
+    tests its threshold this way, without a division."""
+    thr = np.float32(iou_threshold)
+    if np.isnan(thr) or thr == np.inf:
+        return float(thr), False  # the spec's test never passes
+    with np.errstate(over="ignore"):
+        up = np.nextafter(thr, np.float32(np.inf))
+    if np.isinf(up):  # thr is the largest float: past it a quotient overflows
+        return float(thr) + 2.0 ** 103, True
+    return (float(thr) + float(up)) / 2, bool((up.view(np.uint32) & 1) == 0)
+
+
+def _suppresses(best: np.ndarray, box: np.ndarray, iou_threshold: float):
+    """``csrc/nms.cu::suppresses`` in numpy: float32 operations rounded one
+    at a time, then the threshold test of :func:`threshold_split` in double.
+    Does each row of ``best [N, 4]`` (kept first) suppress ``box [4]``?"""
+    def area(b):
+        return np.fmax(b[..., 2] - b[..., 0], np.float32(0)) * \
+            np.fmax(b[..., 3] - b[..., 1], np.float32(0))
+
+    ih = np.fmax(np.fmin(box[2], best[:, 2]) - np.fmax(box[0], best[:, 0]), np.float32(0))
+    iw = np.fmax(np.fmin(box[3], best[:, 3]) - np.fmax(box[1], best[:, 1]), np.float32(0))
+    inter = ih * iw
+    union = (area(best) + area(box)) - inter
+    mid, tie_up = threshold_split(iou_threshold)
+    lhs = inter.astype(np.float64)
+    rhs = mid * np.fmax(union, np.float32(1e-8)).astype(np.float64)
+    hit = (lhs > rhs) | (tie_up & (lhs == rhs))
+    return np.where(union > 0, hit, np.float32(0) > np.float32(iou_threshold))
+
+
+def _candidates(s: np.ndarray, score_threshold: float) -> np.ndarray:
+    """The live boxes of one image in the kernel's order: its 64-bit keys
+    (order-preserving score bits, -0.0 made +0.0, then the complemented
+    index; 0 for a dead box) sorted descending, the dead dropped."""
+    live = (s >= np.float32(score_threshold)) & (s != np.float32(-np.inf))
+    bits = (s + np.float32(0)).view(np.uint32)  # -0.0 + 0.0 = +0.0
+    order_bits = np.where(bits & np.uint32(0x80000000), ~bits, bits | np.uint32(0x80000000))
+    key = (order_bits.astype(np.uint64) << np.uint64(32)) | \
+        (~np.arange(len(s), dtype=np.uint32)).astype(np.uint64)
+    key[~live] = 0
+    return np.argsort(key, kind="stable")[::-1][:int(live.sum())]
+
+
+def sorted_scan_emulation(boxes, scores, max_outputs: int, iou_threshold: float = 0.5,
+                          score_threshold: float = float("-inf"), chunk: int = CHUNK):
+    """What ``csrc/nms.cu`` does, step by step in numpy: the sort keys, the
+    descending sort, then the scan in chunks: (a) each candidate against
+    the kept list, (b) the chunk's suppression bits (row i: the earlier
+    candidates j whose IoU with i exceeds the threshold), (c) the ballot
+    iteration ``keep = F(keep)`` from "every live one" to its fixed point,
+    the cut at K, the append. ``boxes [B, P, 4]``, ``scores [B, P]``
+    (float32 arrays) → ``(sel_idx [B, K] int32, sel_scores [B, K] float32,
+    chunks_run [B])``."""
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    B, P = scores.shape
+    thr = iou_threshold
+    sel_idx = np.full((B, max_outputs), -1, np.int32)
+    sel_scores = np.full((B, max_outputs), -1.0, np.float32)
+    chunks_run = np.zeros(B, np.int64)
+    for b in range(B):
+        s = scores[b]
+        cand = _candidates(s, score_threshold)
+        kept = []
+        for c0 in range(0, len(cand), chunk):
+            if len(kept) >= max_outputs:
+                break
+            chunks_run[b] += 1
+            ch = cand[c0:c0 + chunk]
+            kept_boxes = boxes[b, kept] if kept else np.zeros((0, 4), np.float32)
+            dead = [bool(_suppresses(kept_boxes, boxes[b, i], thr).any()) for i in ch]  # (a)
+            rows = [sum(1 << j for j in np.flatnonzero(_suppresses(boxes[b, ch[:i]],
+                                                                   boxes[b, ch[i]], thr)))
+                    for i in range(len(ch))]  # (b)
+            keep = sum(1 << i for i in range(len(ch)) if not dead[i])  # (c)
+            while True:
+                nxt = sum(1 << i for i in range(len(ch)) if not dead[i] and not rows[i] & keep)
+                if nxt == keep:
+                    break
+                keep = nxt
+            order = [i for i in range(len(ch)) if keep >> i & 1]
+            kept.extend(int(ch[i]) for i in order[:max_outputs - len(kept)])
+        sel_idx[b, :len(kept)] = kept
+        sel_scores[b, :len(kept)] = s[kept]
+    return sel_idx, sel_scores, chunks_run
+
+
+def greedy_iou_tests(boxes, scores, sel_idx, iou_threshold: float = 0.5,
+                     score_threshold: float = float("-inf")) -> int:
+    """The IoU tests that greedy NMS needs for this output, summed over the
+    images: each live candidate, in score order up to the last one the
+    selection reached, against the boxes kept before it, stopping at the
+    first that suppresses it. The work a bound of the kernel may count.
+    ``sel_idx [B, K]`` is the selection (-1 in empty slots) for ``boxes
+    [B, P, 4]`` and ``scores [B, P]``; raises if it is not greedy NMS's."""
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    sel_idx = np.asarray(sel_idx)
+    K_out = sel_idx.shape[1]
+    tests = 0
+    for b in range(scores.shape[0]):
+        kept = [int(i) for i in sel_idx[b] if i >= 0]
+        j = 0  # boxes kept so far
+        for c in _candidates(scores[b], score_threshold):
+            if j == K_out:
+                break
+            if j < len(kept) and c == kept[j]:
+                tests += j  # none of the j kept before it suppresses it
+                j += 1
+                continue
+            hit = np.flatnonzero(_suppresses(boxes[b, kept[:j]], boxes[b, c], iou_threshold))
+            if not len(hit):
+                raise ValueError(f"image {b}: candidate {c} is neither kept nor suppressed")
+            tests += int(hit[0]) + 1
+        if j != len(kept):
+            raise ValueError(f"image {b}: {len(kept) - j} selected boxes were not reached")
+    return tests
+
+
 def nms_select(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -97,8 +250,11 @@ def nms_select(
     K.require(boxes.is_contiguous() and scores.is_contiguous(),
               "nms: tensors must be contiguous")
     K.require(P <= MAX_BOXES,
-              f"nms: {P} boxes per image exceed the {MAX_BOXES} that fit "
-              "one block's shared memory")
+              f"nms: {P} boxes per image exceed the {MAX_BOXES} whose sort keys "
+              "fit one block's shared memory")
+    K.require(kept_list_fits(P, max_outputs),
+              f"nms: a kept list of {min(max_outputs, P)} boxes does not fit beside "
+              f"the sort keys of {P} boxes in one block's shared memory")
     sel_idx = torch.empty((B, max_outputs), dtype=torch.int32, device=boxes.device)
     sel_scores = torch.empty((B, max_outputs), dtype=torch.float32,
                              device=boxes.device)
@@ -106,11 +262,10 @@ def nms_select(
         sel_idx.fill_(-1)
         sel_scores.fill_(-1.0)
     elif B > 0 and max_outputs > 0:
-        lib = K.load_library()
-        err = lib.mbx_nms(boxes.data_ptr(), scores.data_ptr(),
-                          sel_idx.data_ptr(), sel_scores.data_ptr(),
-                          B, P, max_outputs, float(iou_threshold),
-                          float(score_threshold), K.current_stream_ptr())
+        err = K.load_library().mbx_nms(
+            boxes.data_ptr(), scores.data_ptr(), sel_idx.data_ptr(), sel_scores.data_ptr(),
+            B, P, max_outputs, float(iou_threshold), *threshold_split(float(iou_threshold)),
+            float(score_threshold), K.current_stream_ptr())
         K.check_launch(err, "mbx_nms")
         K.LAUNCHES["nms"] += 1
     return sel_idx, sel_scores

@@ -159,8 +159,15 @@ def t(a):
             torch.zeros(3, 4), torch.zeros(4, 2), torch.zeros(3)),
         lambda: fused_matmul.fused_matmul_bias_relu(
             torch.zeros(3, 4), torch.zeros(4, 2, device="meta"), torch.zeros(2)),
+        # the box kernel's float4 accesses: its checks (run before every
+        # launch on the card) refuse a tensor off the 16-byte boundary
+        lambda: box_kernel._check(torch.zeros(33)[1:].view(2, 4, 4), torch.zeros(4, 4),
+                                  "decode_boxes_cuda"),
+        lambda: box_kernel._check(torch.zeros(2, 4, 4), torch.zeros(17)[1:].view(4, 4),
+                                  "encode_boxes_cuda"),
     ],
-    ids=["nms_shape", "nms_rank", "nms_k", "matmul_inner", "matmul_bias", "matmul_device"],
+    ids=["nms_shape", "nms_rank", "nms_k", "matmul_inner", "matmul_bias", "matmul_device",
+         "box_misaligned", "box_priors_misaligned"],
 )
 def test_wrappers_refuse_what_they_do_not_take(call):
     with pytest.raises(ValueError):
@@ -261,6 +268,26 @@ def test_kernels_match_their_plain_versions_on_the_card():
     idx, sc = nms_kernel.nms_select(boxes, scores, 50, 0.5, 0.1)
     want_idx, want_sc = nms_kernel.nms_batched_plain(boxes, scores, 50, 0.5, 0.1)
     assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    # the sorted scan's edges: signed zeros, NaN and infinities, all equal,
+    # P = 1, K >= P, P off the chunk, a dense cluster
+    zeros = t(rng.choice(np.array([0.0, -0.0, 0.25, -0.25]), (3, 200))).to(dev)
+    odd = scores.clone()
+    odd[:, ::5], odd[:, 1::7], odd[:, 2::11] = float("nan"), float("inf"), float("-inf")
+    cluster = (boxes[:, :1] + 0.01 * t(rng.normal(0, 1, (3, 200, 4))).to(dev)).clamp(0, 1)
+    ninf = float("-inf")
+    for b, s, k, thr in ((boxes, zeros, 50, ninf), (boxes, zeros, 50, 0.0),
+                         (boxes, odd, 50, ninf), (boxes, odd, 50, 0.5),
+                         (boxes, torch.full_like(scores, 0.5), 50, 0.0),
+                         (boxes[:, :1].contiguous(), scores[:, :1].contiguous(), 5, ninf),
+                         (boxes, scores, 200, ninf), (boxes, scores, 300, ninf),
+                         (boxes[:, :33].contiguous(), scores[:, :33].contiguous(), 40, 0.0),
+                         (cluster, scores, 50, 0.0)):
+        idx, sc = nms_kernel.nms_select(b, s, k, 0.5, thr)
+        want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, thr)
+        assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    with pytest.raises(ValueError, match="kept list"):
+        nms_kernel.nms_select(torch.zeros(1, 9468, 4, device=dev),
+                              torch.zeros(1, 9468, device=dev), 9468)
     x, w, b = (t(rng.normal(0, 1, s)).to(dev) for s in ((33, 130), (130, 70), (70,)))
     torch.testing.assert_close(
         fused_matmul.fused_matmul_bias_relu(x, w, b, True),
@@ -286,6 +313,8 @@ def test_kernels_match_their_plain_versions_on_the_card():
                        box_kernel.decode_boxes_plain(off, pri[None]))
     assert torch.equal(box_kernel.encode_boxes_cuda(off, pri),
                        box_kernel.encode_boxes_plain(off, pri[None]))
+    with pytest.raises(ValueError, match="16-byte"):
+        box_kernel.decode_boxes_cuda(torch.zeros(33, device=dev)[1:].view(2, 4, 4), pri[:4])
     gt = t(np.sort(rng.uniform(0, 1, (5, 16, 2, 2)), axis=2).reshape(5, 16, 4)).to(dev)
     n = torch.tensor([16, 3, 0, 9, 40], dtype=torch.int32, device=dev)
     assert torch.equal(match_kernel.greedy_match_cuda(gt, n, boxes[0]),

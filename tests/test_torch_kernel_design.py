@@ -1,5 +1,6 @@
-"""The designs of the port's B2 (fused matmul) and B4 (greedy matching)
-kernels, checked on the CPU where the kernels cannot run.
+"""The designs of the port's B1 (NMS + top-k), B2 (fused matmul), B3 (box
+decode/encode) and B4 (greedy matching) kernels, checked on the CPU where
+the kernels cannot run.
 
 - B2's route planner (``fused_matmul._plan``) over every shape the port's
   paths give it: the head's three layers, every folded 1×1 unit at batch 32
@@ -18,6 +19,15 @@ kernels, checked on the CPU where the kernels cannot run.
   column was just taken), written here in numpy, give exactly the
   assignments of the plain version and of the JAX package's
   ``greedy_match``, on tie-heavy cases drawn by hypothesis.
+- B1's sorted scan (``nms_kernel.sorted_scan_emulation``: the kernel's keys
+  with -0.0 made +0.0, the descending sort, the chunks tested against the
+  kept list and against themselves, the in-order resolution, the cut at K)
+  gives exactly the indices, scores and counts of the plain version, of the
+  JAX package's ``_nms_jnp`` and of its Pallas kernel in interpret mode, on
+  the card's edge cases and on tie-heavy grid boxes drawn by hypothesis.
+- B3's launch plan (``box_kernel._plan``) covers every box once at the
+  main and SSD shapes, with either priors layout, one box, and more rows
+  than a grid's y limit.
 """
 
 import numpy as np
@@ -25,17 +35,22 @@ import pytest
 from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import torch
 
 from multibox_tpu.ops import matching as jm
+from multibox_tpu.ops.nms import _nms_jnp
+from multibox_tpu.ops.pallas.nms_kernel import nms_pallas_batched
 from multibox_tpu.ops.pallas.fused_matmul import (
     fused_matmul_bias_relu as fused_matmul_pallas,
 )
 from multibox_tpu_torch.models.inception_v3 import fused_unit_shapes
+from multibox_tpu_torch.ops import boxes as box_ops
 from multibox_tpu_torch.ops import matching as tm
-from multibox_tpu_torch.ops.kernels import fused_matmul, match_kernel
+from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, match_kernel, nms_kernel
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -299,3 +314,241 @@ def test_running_bests_on_duplicates_rescan_and_agree():
     pri = np.sort(rng.uniform(0, 1, (16, 2, 2)), axis=1).reshape(16, 4).astype(np.float32)
     pri[5] = pri[9]
     assert check_world(gt, np.asarray([10, 7], np.int32), pri) > 0
+
+
+# ------------------------------------------------------- B1: the sorted scan
+
+def random_nms_boxes(rng, B, P, lo=0.05, hi=0.5):
+    cy, cx = rng.uniform(0.1, 0.9, (2, B, P))
+    h, w = rng.uniform(lo, hi, (2, B, P))
+    return np.clip(np.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], -1),
+                   0, 1).astype(np.float32)
+
+
+def nms_edge_cases():
+    """(name, boxes, scores, K, iou threshold, score threshold): the cases
+    ``chip_smoke.py`` holds the kernel to, at small sizes."""
+    rng = np.random.default_rng(11)
+    boxes = random_nms_boxes(rng, 3, 40)
+    scores = rng.uniform(0, 1, (3, 40)).astype(np.float32)
+    zeros = rng.choice(np.array([0.0, -0.0, 0.25, -0.25], np.float32), (3, 40))
+    odd = scores.copy()
+    odd[:, ::5], odd[:, 1::7], odd[:, 2::11] = np.nan, np.inf, -np.inf
+    centre = random_nms_boxes(rng, 3, 1, 0.3, 0.5)
+    cluster = np.clip(centre + rng.normal(0, 0.01, (3, 40, 4)), 0, 1).astype(np.float32)
+    ninf = float("-inf")
+    return [
+        ("random", boxes, scores, 24, 0.5, 0.01),
+        ("signed_zeros", boxes, zeros, 24, 0.5, ninf),
+        ("signed_zeros_at_threshold", boxes, zeros, 24, 0.5, 0.0),
+        ("nan_and_inf", boxes, odd, 24, 0.5, ninf),
+        ("nan_and_inf_thresholded", boxes, odd, 24, 0.5, 0.5),
+        ("all_equal", boxes, np.full((3, 40), 0.5, np.float32), 24, 0.5, 0.0),
+        ("all_dead", boxes, scores, 24, 0.5, 2.0),
+        ("dense_cluster", cluster, scores, 24, 0.5, 0.0),
+        ("p1", boxes[:, :1], scores[:, :1], 5, 0.5, ninf),
+        ("k_equals_p", boxes, scores, 40, 0.5, ninf),
+        ("k_above_p", boxes, scores, 50, 0.7, ninf),
+        ("p33", random_nms_boxes(rng, 2, 33), rng.uniform(0, 1, (2, 33)).astype(np.float32),
+         40, 0.3, 0.0),
+        ("p257", random_nms_boxes(rng, 2, 257), rng.uniform(0, 1, (2, 257)).astype(np.float32),
+         100, 0.5, 0.0),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_nms(K):
+    """vmap of the JAX package's ``_nms_jnp``, the thresholds traced."""
+    return jax.jit(lambda b, s, iou, thr: jax.vmap(
+        lambda bb, ss: _nms_jnp(bb, ss, K, iou, thr))(b, s))
+
+
+def check_sorted_scan(boxes, scores, K, iou, thr, pallas=False):
+    """The emulation against the plain version and the JAX spec exactly;
+    with ``pallas`` also against the Pallas kernel in interpret mode.
+    Returns the chunks run."""
+    got_idx, got_scores, chunks = nms_kernel.sorted_scan_emulation(boxes, scores, K, iou, thr)
+    want_idx, want_scores = nms_kernel.nms_batched_plain(
+        torch.from_numpy(boxes), torch.from_numpy(scores), K, iou, thr)
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_scores, want_scores.numpy())
+    refs = [_jax_nms(K)(boxes, scores, np.float32(iou), np.float32(thr))]
+    if pallas:
+        refs.append(jax.jit(functools.partial(
+            nms_pallas_batched, max_outputs=K, iou_threshold=iou, score_threshold=thr,
+            interpret=True))(boxes, scores))
+    for _, ref_scores, ref_idx, ref_num in refs:
+        np.testing.assert_array_equal(got_idx, np.asarray(ref_idx))
+        np.testing.assert_array_equal(got_scores, np.asarray(ref_scores))
+        np.testing.assert_array_equal((got_idx >= 0).sum(1), np.asarray(ref_num))
+    return chunks
+
+
+@pytest.mark.parametrize("case", nms_edge_cases(), ids=lambda c: c[0])
+def test_sorted_scan_gives_the_spec_on_the_edge_cases(case):
+    name, boxes, scores, K, iou, thr = case
+    chunks = check_sorted_scan(boxes, scores, K, iou, thr, pallas=True)
+    if name == "dense_cluster":  # most candidates suppressed: every chunk runs
+        assert chunks.min() == 2
+    if name == "all_dead":
+        assert chunks.max() == 0
+
+
+def test_sorted_scan_orders_signed_zeros_by_index():
+    # -0.0 first at index 0, +0.0 at index 1, disjoint boxes: the spec keeps
+    # both in index order, as raw float bits would not
+    boxes = np.asarray([[[0, 0, 0.1, 0.1], [0.5, 0.5, 0.6, 0.6]]], np.float32)
+    scores = np.asarray([[-0.0, 0.0]], np.float32)
+    idx, sc, _ = nms_kernel.sorted_scan_emulation(boxes, scores, 2, 0.5, float("-inf"))
+    assert idx.tolist() == [[0, 1]] and np.signbit(sc[0, 0]) and not np.signbit(sc[0, 1])
+    check_sorted_scan(boxes, scores, 2, 0.5, float("-inf"))
+
+
+@st.composite
+def tie_heavy_nms_worlds(draw):
+    P = draw(st.sampled_from((8, 33)))
+    K = draw(st.sampled_from((5, 40)))
+    boxes = np.stack([grid_boxes(draw, P) for _ in range(2)])
+    levels = np.asarray([0.0, -0.0, 0.25, 0.5, 1.0], np.float32)
+    scores = levels[np.asarray(draw(st.lists(st.integers(0, 4), min_size=2 * P,
+                                             max_size=2 * P))).reshape(2, P)]
+    iou = draw(st.sampled_from((0.0, 0.3, 0.5)))
+    thr = draw(st.sampled_from((float("-inf"), 0.0, 0.25)))
+    return boxes, scores, K, iou, thr
+
+
+@settings(max_examples=40, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(tie_heavy_nms_worlds())
+def test_sorted_scan_gives_the_spec_on_tie_heavy_grid_boxes(world):
+    check_sorted_scan(*world)
+
+
+def brute_force_iou_tests(boxes, scores, sel_idx, K, iou, thr):
+    """Greedy NMS's IoU tests, one pair at a time through the plain
+    version's IoU: live candidates by (score descending, index ascending),
+    each against the kept boxes in order up to the first above ``iou``."""
+    tests = 0
+    for b in range(scores.shape[0]):
+        live = [i for i in range(scores.shape[1])
+                if scores[b, i] >= np.float32(thr) and scores[b, i] != -np.inf]
+        kept = []
+        for c in sorted(live, key=lambda i: (-float(scores[b, i]), i)):
+            if len(kept) == K:
+                break
+            for n, k in enumerate(kept):
+                pair = torch.from_numpy(boxes[b, [k, c]])
+                if float(box_ops.iou_pairwise(pair[0], pair[1])) > np.float32(iou):
+                    tests += n + 1
+                    break
+            else:
+                tests += len(kept)
+                kept.append(c)
+        assert kept == [i for i in sel_idx[b] if i >= 0]
+    return tests
+
+
+@pytest.mark.parametrize("case", [c for c in nms_edge_cases()
+                                  if c[0] in ("random", "signed_zeros", "nan_and_inf_thresholded",
+                                              "dense_cluster", "k_equals_p", "p33")],
+                         ids=lambda c: c[0])
+def test_greedy_iou_tests_count_the_work_the_selection_needs(case):
+    """``greedy_iou_tests``, the work ``chip_smoke.py``'s bound of B1 counts."""
+    _, boxes, scores, K, iou, thr = case
+    idx, _ = nms_kernel.nms_batched_plain(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                          K, iou, thr)
+    want = brute_force_iou_tests(boxes, scores, idx.numpy(), K, iou, thr)
+    assert nms_kernel.greedy_iou_tests(boxes, scores, idx.numpy(), iou, thr) == want
+
+
+def test_greedy_iou_tests_on_disjoint_boxes_and_a_wrong_selection():
+    # n disjoint boxes, all kept: candidate j is tested against the j before it
+    n = 12
+    lo = np.arange(n, dtype=np.float32) / n
+    boxes = np.stack([lo, lo, lo + 0.5 / n, lo + 0.5 / n], -1)[None]
+    scores = np.linspace(1, 0.1, n, dtype=np.float32)[None]
+    idx = np.arange(n, dtype=np.int32)[None]
+    assert nms_kernel.greedy_iou_tests(boxes, scores, idx) == n * (n - 1) // 2
+    with pytest.raises(ValueError):
+        nms_kernel.greedy_iou_tests(boxes, scores, idx[:, ::-1].copy())
+
+
+@pytest.mark.parametrize("P,K,fits", [
+    (256, 100, True), (1, 1, True), (9468, 200, True), (8192, 8192, True),
+    (16384, 5312, True), (16384, 5313, False), (9468, 9468, False)])
+def test_nms_kept_list_fits_beside_the_keys(P, K, fits):
+    """The wrapper's refusal: 8 B a key (P padded to a power of two) and 16 B
+    a kept box within csrc/nms.cu's 211 KiB of shared memory."""
+    assert nms_kernel.kept_list_fits(P, K) is fits
+
+
+# ------------------------------------------------------------ B3: the plan
+
+@pytest.mark.parametrize("a_shape,prior_shape", [
+    ((32, 256, 4), (256, 4)),      # the detect and train batches
+    ((32, 256, 4), (1, 256, 4)),
+    ((32, 9468, 4), (9468, 4)),    # the SSD prior count
+    ((2, 9468, 4), (1, 9468, 4)),
+    ((1, 1, 4), (1, 4)),           # one box
+    ((1, 4), (1, 4)),
+    ((70000, 1, 4), (1, 4)),       # past the grid's y limit
+    ((2, 3, 77, 4), (77, 4)),      # two leading dims
+    ((3, 77, 4), (3, 77, 4)),      # priors of the same shape: one row
+], ids=["main", "main_leading_1", "ssd", "ssd_leading_1", "one_box", "one_box_2d",
+        "rows_past_y_limit", "two_leading_dims", "same_shape"])
+def test_box_plan_covers_every_box_once(a_shape, prior_shape):
+    a, pri = torch.zeros(a_shape), torch.zeros(prior_shape)
+    plan = box_kernel._check(a, pri, "test")
+    P = pri.numel() // 4
+    assert plan.P == P and plan.rows * P == a.numel() // 4
+    gx, gy = plan.grid
+    # x: one thread a prior in blocks of 256 (csrc/box.cu), the last block's tail masked
+    assert box_kernel.THREADS == 256
+    assert (gx - 1) * box_kernel.THREADS < P <= gx * box_kernel.THREADS
+    # y: the blocks y, y + gy, ... visit every row once
+    assert 1 <= gy <= min(plan.rows, box_kernel.MAX_GRID_Y)
+    visits = np.zeros(plan.rows, np.int64)
+    for y in range(gy):
+        visits[y::gy] += 1
+    assert (visits == 1).all()
+
+
+def test_box_plan_refuses_what_the_kernel_does_not_take():
+    shifted = torch.zeros(2 * 8 * 4 + 1)[1:].view(2, 8, 4)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        box_kernel._check(shifted, torch.zeros(8, 4), "decode")
+    with pytest.raises(ValueError, match="16-byte"):
+        box_kernel._check(torch.zeros(2, 8, 4), torch.zeros(33)[1:].view(8, 4), "decode")
+    with pytest.raises(ValueError, match="broadcast"):
+        box_kernel._check(torch.zeros(2, 8, 4), torch.zeros(7, 4), "decode")
+    with pytest.raises(ValueError, match="rows"):
+        box_kernel._plan(10, 4)
+
+
+def test_threshold_test_without_division_is_the_rounded_quotients():
+    """The kernel's ``inter > mid * u`` (or ``==`` with ``tie_up``) in double
+    against float32 ``inter / u > thr``, at quotients within a few ulps of
+    the threshold and at thresholds on the edges of the float32 range."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    tiny = np.nextafter(f32(0), f32(1))
+    for thr in (0.5, 0.3, 0.7, 0.9, 1.0, 0.0, -0.0, -0.25, float(tiny), 1e-30,
+                float(np.finfo(np.float32).max), float("inf"), float("nan")):
+        t = f32(thr)
+        u = rng.uniform(1e-8, 2.0, 4000).astype(f32)
+        if abs(thr) > 1e30:  # quotients near the largest float: u <= 1
+            u = rng.uniform(0.25, 1.0, 4000).astype(f32)
+        centre = (t * u).astype(f32) if np.isfinite(t) else rng.uniform(0, 1, 4000).astype(f32)
+        inter = centre.copy()
+        with np.errstate(over="ignore"):  # one ulp past the largest float
+            for _ in range(3):  # up to 3 ulps either side, and the centre itself
+                step = rng.integers(-1, 2, 4000)
+                inter = np.where(step > 0, np.nextafter(inter, f32(np.inf)),
+                                 np.where(step < 0, np.nextafter(inter, f32(0)), inter))
+        inter = np.abs(inter).astype(f32)
+        with np.errstate(over="ignore"):
+            want = (inter / u) > t
+        mid, tie_up = nms_kernel.threshold_split(thr)
+        lhs, rhs = inter.astype(np.float64), mid * u.astype(np.float64)
+        got = (lhs > rhs) | (tie_up & (lhs == rhs))
+        np.testing.assert_array_equal(got, want, err_msg=f"thr={thr}")
