@@ -18,7 +18,16 @@ read just after) and that what comes out is right, stage by stage:
   model, G = 16 boxes, greedy matching through the matching kernel, the
   head through the matmul kernel forward and backward, RMSProp, EMA,
   augmentation), 12 steps, then resumed from its checkpoint to 16; one
-  batch overfitted for 40 steps; stage times of a step.
+  batch overfitted for 40 steps; stage times of a step;
+- cli: the command-line path a user runs, through each CLI's ``main``:
+  tfrecords written from the seed (``image/raw`` canvases, plus 8 JPEG
+  records where PIL is installed), ``cli.priors`` (k-means, 256 priors),
+  ``cli.train`` with configs/voc_train.yaml as shipped (Hungarian
+  matching, use_pallas unset, so B1 in the periodic evals is its only
+  kernel) for 4 steps with an eval every 3, resumed to 6, then
+  ``cli.detect`` (configs/cub_detect.yaml) and ``cli.evaluate``; Hungarian
+  matching of one batch (B=32, G=16, P=256) on the card against the CPU
+  and scipy, its ms and exit tests a call.
 
 Every phase prints one JSON line; any failure raises and the process exits
 non-zero. Needs one CUDA device; without one it exits with code 2 and
@@ -33,7 +42,9 @@ atol 1e-4 (a sum over K = 6144 in another order), bfloat16 output rtol
 2e-2 / atol 2e-2, on every route of the matmul (skinny, tall f32, tall
 bf16, general) at its ragged edges, and a second launch on the same
 inputs bit-equal (the split along K is summed in a fixed order); the
-matmul's backward float32 rtol 1e-4 / atol 1e-4;
+matmul's backward float32 rtol 1e-4 / atol 1e-4; Hungarian assignments
+on the card equal to the CPU's and to scipy's (after a check that they
+are optimal: total benefit within 1e-6 of scipy's);
 the head's gradients through the kernel against the plain head rtol 1e-3
 / atol 1e-4 of the largest entry (forward sums in another order, then
 products over up to 6144 terms); one train step with kernels against one
@@ -44,10 +55,12 @@ update of at most lr·√10).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -72,7 +85,7 @@ from multibox_tpu_torch.models.inception_v3 import (  # noqa: E402
     fold_batch_norms,
     fused_unit_shapes,
 )
-from multibox_tpu_torch.ops import kernels  # noqa: E402
+from multibox_tpu_torch.ops import kernels, matching  # noqa: E402
 from multibox_tpu_torch.ops.kernels import (  # noqa: E402
     box_kernel,
     fused_matmul,
@@ -284,7 +297,8 @@ def check_nms(rng):
         "replaces": "multibox_tpu/ops/pallas/nms_kernel.py:109",
         "max_abs_err": worst, "library_ms": None,
         "tolerance": "indices, counts and scores exact", **main,
-        "p1024": nms_entry(*by_name["p1024"]), "p9468": nms_entry(*by_name["p9468"]),
+        "p1024": nms_entry(*by_name["p1024"], plain=True),
+        "p9468": nms_entry(*by_name["p9468"], plain=True),
         "cases": [c[0] for c in cases],
     }
 
@@ -408,7 +422,7 @@ def check_folded_units(rng, batch=32):
     count = {}
     for _, M, Kd, N in units:
         count[(M, Kd, N)] = count.get((M, Kd, N), 0) + 1
-    parts, tot = [], {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    parts, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for (M, Kd, N), units_of_shape in sorted(count.items()):
         x, w, b = matmul_inputs(rng, M, Kd, N, torch.bfloat16)
         got = fused_matmul.fused_matmul_bias_relu(x, w, b, True)
@@ -416,13 +430,15 @@ def check_folded_units(rng, batch=32):
         torch.testing.assert_close(got.float(), fused_matmul.fused_matmul_plain(x, w, b).float(),
                                    rtol=2e-2, atol=2e-2,
                                    msg=lambda m: f"fused_matmul[folded {M}x{Kd}x{N}]: {m}")
-        ms, _, library_ms = time_matmul(x, w, b, True, plain=False)
+        ms, plain_ms, library_ms = time_matmul(x, w, b, True)
         bound_ms, bound_by = matmul_bound(M, Kd, N, torch.bfloat16)
         plan = fused_matmul._plan(M, Kd, N, torch.bfloat16)
         parts.append({"M": M, "K": Kd, "N": N, "units": units_of_shape, "route": plan.route,
-                      "split_k": plan.split_k, "ms": ms, "library_ms": library_ms,
+                      "split_k": plan.split_k, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms})
         tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
         tot["library_ms"] += library_ms
         tot["bound_ms"] += bound_ms
     return {"name": "folded_1x1_bf16_all", "dtype": "bfloat16", "relu": True,
@@ -547,8 +563,13 @@ def check_match(rng):
             raise AssertionError(f"match[{name}]: assignments differ at {bad}")
     _, gt64, num64, pri64 = cases[1]
     tg, tn, tp = dev(gt64), dev(num64), dev(pri64)
-    g64 = {"shape": "B=8 G=64 P=512",
-           "ms": time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp)),
+    g64_ms = time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp))
+    g64_bound, g64_by = bound(8 * 64 * 16 + 8 * 4 + 512 * 16 + 8 * 64 * 4,
+                              match_work(num64, 64, 512), "float32")
+    g64 = {"shape": "B=8 G=64 P=512", "ms": g64_ms, "bound_ms": g64_bound,
+           "bound_by": g64_by, "share_of_bound": g64_bound / g64_ms,
+           "plain_ms": time_ms(lambda: match_kernel.greedy_match_plain(tg, tn, tp),
+                               reps=5, warmup=1),
            "rounds_slowest_image": int(np.minimum(num64, 512).max()),
            "rounds_run": int(np.minimum(num64, 512).sum())}
     _, gt, num, pri = cases[0]
@@ -1074,7 +1095,8 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s = train_loop.train(cfg, stream, priors, logdir, max_steps=loop_steps, device=DEV)
+    s = train_loop.train_from_batches(cfg, stream, priors, logdir, max_steps=loop_steps,
+                                      device=DEV)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -1082,7 +1104,8 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
             "box_decode": 0, "box_encode": loop_steps, "match": loop_steps}
     if counts != want:
         raise AssertionError(f"train launch counts {counts}, expected {want}")
-    first = train_loop.train(cfg, stream, priors, logdir, max_steps=loop_steps + 4, device=DEV)
+    first = train_loop.train_from_batches(cfg, stream, priors, logdir,
+                                          max_steps=loop_steps + 4, device=DEV)
     latest = CheckpointManager(logdir).latest_step()
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
@@ -1133,6 +1156,209 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
     return counts
 
 
+# --------------------------------------------------------------------------
+# the command-line path: priors → train → detect → evaluate
+# --------------------------------------------------------------------------
+
+
+def write_records(rng, path, n, canvas, first_id, jpeg=0):
+    """``n`` records of bright rectangles on a dark uint8 canvas, 1-16 boxes
+    each (label 1): ``image/raw`` canvases of ``canvas`` px, so the data
+    layer decodes no JPEG, then ``jpeg`` JPEG records (PIL encodes them)."""
+    from multibox_tpu_torch.data.example_proto import build_detection_example
+    from multibox_tpu_torch.data.tfrecord import TFRecordWriter
+
+    with TFRecordWriter(path) as w:
+        for i in range(n + jpeg):
+            boxes = random_boxes(rng, (int(rng.integers(1, 17)),), min_size=0.1)
+            img = np.full((canvas, canvas, 3), 30, np.uint8)
+            for y0, x0, y1, x1 in (boxes * canvas).astype(int):
+                img[y0:y1, x0:x1] = rng.integers(120, 256, 3)
+            if i < n:
+                rec = build_detection_example(b"", f"im{first_id + i}", boxes,
+                                              labels=[1] * len(boxes), raw_canvas=img)
+            else:
+                from multibox_tpu_torch.data.jpeg import encode_jpeg
+
+                rec = build_detection_example(encode_jpeg(img), f"im{first_id + i}", boxes,
+                                              labels=[1] * len(boxes),
+                                              height=canvas, width=canvas)
+            w.write(rec)
+
+
+def hungarian_on_the_card(gt, num, priors):
+    """B=32, G=16, P=256 Hungarian matching on the card: exact against the
+    port on the CPU and against scipy (indices; first checked optimal, so a
+    tie scipy breaks otherwise reads as such); ms a call (CUDA events, L2
+    evicted) and exit tests (host syncs) a call."""
+    from scipy.optimize import linear_sum_assignment
+
+    benefit = matching.compute_benefit(dev(gt), dev(priors))
+    got = matching.hungarian_match(benefit, dev(num)).cpu().numpy()
+    cpu = matching.hungarian_match(benefit.cpu(), torch.from_numpy(num)).numpy()
+    if not np.array_equal(got, cpu):
+        raise AssertionError("Hungarian on the card differs from the CPU")
+    b64 = benefit.cpu().numpy().astype(np.float64)
+    index_exact = 0
+    for b in range(len(num)):
+        rows, cols = linear_sum_assignment(b64[b, :num[b]], maximize=True)
+        want = np.full(gt.shape[1], -1)
+        want[rows] = cols
+        act = got[b, :num[b]]
+        mine = sum(b64[b, i, j] for i, j in enumerate(act))
+        if (act < 0).any() or len(set(act.tolist())) != len(act) or \
+                (got[b, num[b]:] != -1).any() or mine < b64[b][rows, cols].sum() - 1e-6:
+            raise AssertionError(f"Hungarian image {b} is not an optimal assignment")
+        index_exact += int(np.array_equal(got[b], want))
+    if index_exact != len(num):
+        raise AssertionError(f"Hungarian: {index_exact} of {len(num)} images equal scipy's")
+    matching.reset_exit_tests()
+    ms = time_ms(lambda: matching.hungarian_match(benefit, dev(num)), reps=10, warmup=2)
+    calls = matching.EXIT_TESTS["calls"]
+    return {"hungarian_ms": ms, "hungarian_exit_tests_per_call":
+            matching.EXIT_TESTS["tests"] / calls, "hungarian_scipy_index_exact_images":
+            index_exact, "hungarian_images": len(num), "hungarian_equals_cpu": True}
+
+
+def phase_cli(rng, card_line):
+    """The command-line path at voc_train's full width: k-means priors,
+    ``cli.train.main --config configs/voc_train.yaml`` (Hungarian matching,
+    use_pallas unset, periodic eval) for 4 steps and resumed to 6,
+    ``cli.detect.main`` with configs/cub_detect.yaml, ``cli.evaluate.main``.
+    Returns the kernels' launch counts of the phase."""
+    from importlib.util import find_spec
+
+    from multibox_tpu_torch.cli import detect as cli_detect
+    from multibox_tpu_torch.cli import evaluate as cli_evaluate
+    from multibox_tpu_torch.cli import priors as cli_priors
+    from multibox_tpu_torch.cli import train as cli_train
+    from multibox_tpu_torch.config import parse_config_file
+    from multibox_tpu_torch.data.pipeline import DetectionDataset
+    from multibox_tpu_torch.priors import load_priors
+
+    root = os.path.join(".work", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    train_cfg = parse_config_file("configs/voc_train.yaml")
+    det_cfg = parse_config_file("configs/cub_detect.yaml")
+    canvas = max(int(train_cfg.input_size * 1.15), train_cfg.input_size)
+    jpeg = 8 if find_spec("PIL") is not None else 0
+    train_rec, eval_rec = os.path.join(root, "train.tfrecord"), os.path.join(root, "eval.tfrecord")
+    t0 = time.perf_counter()
+    write_records(rng, train_rec, 64, canvas, 0)
+    write_records(rng, eval_rec, 32, train_cfg.input_size, 64, jpeg=jpeg)
+    out = {"phase": "cli", "card": card_line,
+           "config": f"configs/voc_train.yaml as shipped (inception_v3 {train_cfg.input_size}, "
+                     f"P={train_cfg.num_priors}, batch {train_cfg.batch_size}, "
+                     f"G={train_cfg.max_num_bboxes}, matching {train_cfg.matching}, "
+                     f"use_pallas {train_cfg.use_pallas}, {train_cfg.compute_dtype} backbone, "
+                     f"augmentation on a {canvas}-px canvas); detect with "
+                     "configs/cub_detect.yaml",
+           "records": {"train_raw": 64, "eval_raw": 32, "eval_jpeg": jpeg},
+           "decoders": ["image/raw"] + (["jpeg (PIL)"] if jpeg else []),
+           "write_seconds": time.perf_counter() - t0}
+    quiet = contextlib.redirect_stdout(sys.stderr)  # the CLIs' own prints
+
+    kernels.reset_launch_counts()
+    priors_path = os.path.join(root, "priors.pkl")
+    with quiet:
+        if cli_priors.main(["--tfrecords", train_rec, "--output", priors_path,
+                            "--mode", "kmeans", "--num_priors", str(train_cfg.num_priors)]):
+            raise AssertionError("priors CLI failed")
+    priors = load_priors(priors_path)
+    if priors.shape != (train_cfg.num_priors, 4) or not np.isfinite(priors).all():
+        raise AssertionError(f"k-means priors {priors.shape}")
+
+    logdir = os.path.join(root, "logdir")
+    args = ["--tfrecords", train_rec, "--priors", priors_path, "--logdir", logdir,
+            "--config", "configs/voc_train.yaml", "--eval_tfrecords", eval_rec,
+            "--eval_every_steps", "3"]
+    runs = []
+    for steps in (4, 6):
+        matching.reset_exit_tests()
+        t0 = time.perf_counter()
+        with quiet:
+            if cli_train.main(args + ["--max_number_of_steps", str(steps)]):
+                raise AssertionError("train CLI failed")
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "hungarian_calls": matching.EXIT_TESTS["calls"],
+                     "hungarian_exit_tests": matching.EXIT_TESTS["tests"],
+                     "checkpoints": CheckpointManager(logdir).all_steps()})
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    steps_logged = [r for r in logged if "loss" in r]
+    evals = [r for r in logged if "eval/AP@0.5" in r]
+    # the resumed run matched 2 batches, not 6: it went on from step 4
+    if [r["hungarian_calls"] for r in runs] != [4, 2] or runs[0]["checkpoints"] != [4] \
+            or runs[1]["checkpoints"] != [4, 6]:
+        raise AssertionError(f"train CLI runs {runs}")
+    if [r["step"] for r in steps_logged] != [4, 6] or [r["step"] for r in evals] != [3, 6]:
+        raise AssertionError(f"logged {[(r['step'], sorted(r)[:2]) for r in logged]}")
+    if not all(math.isfinite(v) for r in logged for v in r.values()):
+        raise AssertionError(f"non-finite metrics: {logged}")
+
+    det_path = os.path.join(root, "detections.pkl")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet:
+        if cli_detect.main(["--tfrecords", eval_rec, "--priors", priors_path,
+                            "--checkpoint_path", logdir, "--output", det_path,
+                            "--config", "configs/cub_detect.yaml"]):
+            raise AssertionError("detect CLI failed")
+    detect_seconds = time.perf_counter() - t0
+    with quiet:
+        if cli_evaluate.main(["--tfrecords", eval_rec, "--detections", det_path,
+                              "--config", "configs/cub_detect.yaml"]):
+            raise AssertionError("evaluate CLI failed")
+    counts = kernels.launch_counts()
+    with open(det_path, "rb") as f:
+        results = pickle.load(f)
+    metrics = cli_evaluate.evaluate(results, [eval_rec], det_cfg)
+    images = 32 + jpeg
+    batches = -(-images // det_cfg.batch_size)
+    if len(results) != images or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"detections {len(results)}, metrics {metrics}")
+    # B1 once a batch in each of the two periodic evals and in detect; the
+    # config leaves use_pallas unset: no other kernel runs on this path
+    want = {"nms": 3 * batches, "fused_matmul": 0, "fused_matmul_backward": 0,
+            "box_decode": 0, "box_encode": 0, "match": 0}
+    if counts != want:
+        raise AssertionError(f"cli launch counts {counts}, expected {want}")
+
+    # the data layer alone, as the train CLI reads (shuffled, repeated): the
+    # first batch waits for the 512-record shuffle buffer
+    stream = iter(DetectionDataset([train_rec], batch_size=train_cfg.batch_size,
+                                   canvas_size=canvas, max_num_bboxes=train_cfg.max_num_bboxes,
+                                   shuffle=True, repeat=True, seed=train_cfg.seed))
+    t0 = time.perf_counter()
+    batch = next(stream)
+    t1 = time.perf_counter()
+    for _ in range(6):
+        next(stream)
+    out.update({"data_first_batch_s": t1 - t0,
+                "data_ms_per_batch": (time.perf_counter() - t1) * 1e3 / 6})
+    stream.close()
+    out.update(hungarian_on_the_card(batch["boxes"], batch["num_boxes"], priors))
+    shutil.rmtree(root, ignore_errors=True)  # each checkpoint is some 350 MB
+
+    ips = [r["images_per_sec"] for r in steps_logged]
+    out.update({
+        "ok": True, "launches": counts, "train_runs": runs,
+        "train_loop_images_per_s_logged": ips,
+        "train_loop_ms_per_step": [train_cfg.batch_size * 1e3 / x for x in ips],
+        "hungarian_exit_tests_per_step": [r["hungarian_exit_tests"] / r["hungarian_calls"]
+                                          for r in runs],
+        "loss_at": {r["step"]: r["loss"] for r in steps_logged},
+        "eval_at": {r["step"]: {k[5:]: r[k] for k in ("eval/AP@0.5", "eval/recall@0.5",
+                                                      "eval/num_images")} for r in evals},
+        "detect_cli_seconds": detect_seconds, "detect_images": images,
+        "detect_cli_images_per_s": images / detect_seconds,
+        "eval_metrics": metrics})
+    emit(out)
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -1167,12 +1393,15 @@ def main() -> int:
     del variables
     torch.cuda.empty_cache()
     train_counts = phase_train(rng, card_line, args.profile)
+    torch.cuda.empty_cache()
+    cli_counts = phase_cli(rng, card_line)
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the two paths: detect (B1, B2, B3a) and train (B2, B3b, B4)
+    # launches on the three paths: detect (B1, B2, B3a), train (B2, B3b, B4)
+    # and cli (B1)
     for e in entries + [backward]:
-        e["launches"] = counts[e["name"]] + train_counts[e["name"]]
+        e["launches"] = counts[e["name"]] + train_counts[e["name"]] + cli_counts[e["name"]]
     on_path = {"nms", "fused_matmul", "box_decode", "box_encode", "match"}
     for e in entries:
         if e["name"] in on_path and e["launches"] < 1:

@@ -2,9 +2,10 @@
 
 Own copy of the ``Config`` surface of the JAX package, field for field, so
 the same YAML files load unchanged (snake_case keys and the original
-UPPER_CASE keys). Fields that belong to parts not ported yet (training,
-SSD, int8) are kept so that a config file round-trips; the code that reads
-them raises ``NotImplementedError`` until its slice lands.
+UPPER_CASE keys). Fields that belong to parts not ported yet (SSD,
+MobileNet, int8, multi-device) are kept so that a config file round-trips;
+the code that reads them raises ``NotImplementedError`` until its slice
+lands.
 Unknown keys warn instead of failing so older configs load.
 """
 
@@ -114,9 +115,10 @@ class Config:
     # --- host input pipeline (see data/pipeline) ---
     decode_draft: bool = False  # libjpeg DCT-scaled decode for train inputs
     decode_cache_items: int = 0  # RAM-cache N decoded items across epochs
-    # Batches per host→device transfer. Only 1 is supported by this
-    # package: the grouping exists in the JAX package for links that charge
-    # per transfer, which a PCIe/NVLink-attached GPU does not.
+    # Train steps per loop iteration: K > 1 stacks K host batches and runs
+    # them back to back in one call (train.loop.make_chunked_step), with the
+    # same result as K single steps. The JAX package groups them to amortize
+    # a link that charges per transfer; the detect loop here ignores it.
     steps_per_host_transfer: int = 1
 
     # NMS flavor: "hard" (reference semantics, CUDA kernel on the GPU) or

@@ -246,7 +246,7 @@ def make_detect_body(cfg: Config, priors, use_ema: bool = None, device=None):
     if cfg.quantize == "int8":
         raise NotImplementedError(
             "quantize='int8' (post-training quantization) is a later slice "
-            "of the port"
+            "of the port; see ROADMAP.md, queue 1, item 16"
         )
     device = resolve_device(device)
     priors = torch.as_tensor(np.asarray(priors, np.float32)).to(device)

@@ -10,8 +10,11 @@ into the per-prior targets the loss consumes.
   values the first row-major cell wins. Deterministic, and the default for
   training. Over the pure IoU benefit it is what the CUDA kernel
   ``ops.kernels.match_kernel`` computes.
-* Exact (Hungarian) matching is not ported yet: ``method="hungarian"``
-  raises ``NotImplementedError``.
+* :func:`hungarian_match` — exact rectangular assignment by the
+  Jonker–Volgenant shortest augmenting path (the algorithm of
+  ``scipy.optimize.linear_sum_assignment``), with the JAX package's tie
+  rule and its bound of P settles per search. The images of a batch run in
+  lock step; only the exit tests of the searches wait for the device.
 
 Every function takes optional leading batch dimensions (``[..., G, 4]``
 gt boxes, ``[...]`` counts) over shared ``[P, 4]`` priors, so the batch is
@@ -22,7 +25,7 @@ per-prior forms of it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -98,6 +101,140 @@ def greedy_match(benefit: torch.Tensor, num_gt) -> torch.Tensor:
         masked = torch.where(valid[:, None, None] & kill,
                              torch.full_like(masked, _NEG), masked)
     return assignment.reshape(*lead, G)
+
+
+# Exit tests of hungarian_match, counted as the kernel wrappers count their
+# launches: on CUDA each test copies one flag to the host and waits for the
+# device, so a run can report how many a call took.
+EXIT_TESTS: Dict[str, int] = {"calls": 0, "tests": 0}
+
+
+def reset_exit_tests() -> None:
+    for name in EXIT_TESTS:
+        EXIT_TESTS[name] = 0
+
+
+def _exit_test(flag: torch.Tensor) -> bool:
+    EXIT_TESTS["tests"] += 1
+    return bool(flag)
+
+
+def _augment_row(cost, i, active, u, v, col4row, row4col) -> None:
+    """One Jonker–Volgenant phase for gt row ``i`` of every image at once:
+    a Dijkstra from row ``i`` to the nearest unassigned column in the
+    reduced-cost graph, the dual update, then the augmentation along the
+    predecessor chain. ``u [B, G]``, ``v [B, P]``, ``col4row [B, G]`` and
+    ``row4col [B, P]`` are updated in place; images whose ``active [B]``
+    flag is False are left as they are.
+
+    Per image this is the JAX package's ``_augment_one_row`` (scipy's
+    ``_lsap`` with the search bounded at P settles): the same float32
+    expression order, and among the columns of least tentative cost the
+    first unassigned one, else the first one (its ``lexsort`` on (cost,
+    assigned)). The images settle one column each per iteration; a search
+    that has reached a free column idles, masked, while the others go on.
+    """
+    B, G, P = cost.shape
+    dev = cost.device
+    batch = torch.arange(B, device=dev)
+    cols = torch.arange(P, device=dev)
+    inf = torch.tensor(float("inf"), dtype=cost.dtype, device=dev)
+    i_cur = torch.full((B,), i, dtype=torch.int64, device=dev)
+    min_val = torch.zeros((B,), dtype=cost.dtype, device=dev)
+    shortest = torch.full((B, P), float("inf"), dtype=cost.dtype, device=dev)
+    scanned_cols = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    scanned_rows = torch.zeros((B, G), dtype=torch.bool, device=dev)
+    pred = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    sink = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    running = active.clone()
+    settled, next_test = 0, 1
+    while settled < P:
+        scanned_rows[batch, i_cur] |= running
+        r = min_val[:, None] + cost[batch, i_cur] - u[batch, i_cur][:, None] - v
+        better = (r < shortest) & ~scanned_cols & running[:, None]
+        shortest = torch.where(better, r, shortest)
+        pred = torch.where(better, i_cur[:, None], pred)
+        cand = torch.where(scanned_cols, inf, shortest)
+        lowest = cand.min(dim=1).values
+        # among the least: unassigned before assigned, then the lowest index
+        rank = torch.where(cand == lowest[:, None], (row4col >= 0) * P + cols, 2 * P)
+        j = rank.min(dim=1).values % P
+        owner = row4col[batch, j]
+        is_sink = owner < 0
+        scanned_cols[batch, j] |= running
+        i_cur = torch.where(running & ~is_sink, owner, i_cur)
+        min_val = torch.where(running, lowest, min_val)
+        sink = torch.where(running & is_sink, j, sink)
+        running = running & ~is_sink
+        settled += 1
+        # test after 1, 2, 4, … settles: at most twice the longest search
+        if settled == next_test:
+            if not _exit_test(running.any()):
+                break
+            next_test *= 2
+
+    found = sink >= 0  # False only where the column set was exhausted
+    u_new = u.clone()
+    u_new[:, i] += min_val
+    other = scanned_rows.clone()
+    other[:, i] = False
+    seen = shortest.gather(1, col4row.clamp_min(0))
+    u_new = u_new + torch.where(other, min_val[:, None] - seen, 0.0)
+    v_new = v - torch.where(scanned_cols, min_val[:, None] - shortest, 0.0)
+    u.copy_(torch.where(found[:, None], u_new, u))
+    v.copy_(torch.where(found[:, None], v_new, v))
+
+    # The path visits each row on the tree at most once: at most i + 1 rows,
+    # and no more than the settles that built the tree.
+    j, done = sink, ~found
+    for _ in range(min(i + 1, settled)):
+        jj = j.clamp_min(0)
+        row = pred[batch, jj]
+        upd = ~done
+        row4col[batch, jj] = torch.where(upd, row, row4col[batch, jj])
+        prev = col4row[batch, row]
+        col4row[batch, row] = torch.where(upd, jj, prev)
+        done = done | (row == i)
+        j = torch.where(upd, prev, j)
+
+
+def hungarian_match(benefit: torch.Tensor, num_gt) -> torch.Tensor:
+    """Exact max-benefit 1-to-1 assignment (Jonker–Volgenant).
+
+    Solves, per image, the rectangular assignment of
+    ``scipy.optimize.linear_sum_assignment(-benefit[:num_gt])`` in float32,
+    with the JAX package's tie rule. Padded rows (``>= num_gt``) get
+    ``-1``. When ``num_gt > P`` the first P rows are matched among
+    themselves and the rest get ``-1`` (scipy raises there).
+
+    Args:
+      benefit: ``[..., G, P]`` benefit matrices.
+      num_gt: ``[...]`` ints (or one int).
+
+    Returns ``[..., G]`` int32 prior index per gt. The gt rows run in
+    order, the images in lock step; exit tests (host syncs on CUDA, counted
+    in ``EXIT_TESTS``) number about log2 of the longest search per row.
+    """
+    lead = benefit.shape[:-2]
+    G, P = benefit.shape[-2:]
+    dev = benefit.device
+    cost = -benefit.reshape(-1, G, P).to(torch.float32)
+    B = cost.shape[0]
+    n = torch.as_tensor(num_gt, device=dev).reshape(-1).expand(B).clamp(max=P)
+    active = torch.arange(G, device=dev)[None, :] < n[:, None]
+    EXIT_TESTS["calls"] += 1
+    u = torch.zeros((B, G), dtype=torch.float32, device=dev)
+    v = torch.zeros((B, P), dtype=torch.float32, device=dev)
+    col4row = torch.full((B, G), -1, dtype=torch.int64, device=dev)
+    row4col = torch.full((B, P), -1, dtype=torch.int64, device=dev)
+    rows = 0
+    if B and G and P:
+        EXIT_TESTS["tests"] += 1
+        rows = min(int(n.max()), G)
+    for i in range(rows):
+        _augment_row(cost, i, active[:, i], u, v, col4row, row4col)
+    out = torch.where(active, col4row, -1).to(torch.int32)
+    return out.reshape(*lead, G)
 
 
 def _scatter_to_priors(assignment: torch.Tensor, values: torch.Tensor,
@@ -210,13 +347,11 @@ def dense_targets(
 
 def assign(benefit: torch.Tensor, num_gt, method: str = "greedy") -> torch.Tensor:
     """Per-gt assignment ``[..., G]`` from a benefit ``[..., G, P]`` by
-    ``method``: "greedy"; "hungarian" is not ported yet and raises."""
+    ``method``: "greedy" or "hungarian"."""
     if method == "greedy":
         return greedy_match(benefit, num_gt)
     if method == "hungarian":
-        raise NotImplementedError(
-            "method='hungarian' (exact Jonker-Volgenant matching) is not "
-            "ported yet: see ROADMAP.md, queue 1, item 9a")
+        return hungarian_match(benefit, num_gt)
     raise ValueError(f"unknown matching method: {method}")
 
 

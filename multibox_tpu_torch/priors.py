@@ -1,5 +1,9 @@
-"""Prior-box generation and I/O (numpy only).
+"""Prior-box generation and I/O.
 
+* :func:`generate_priors_kmeans` — cluster the normalized ground-truth
+  boxes of a dataset into ``P`` priors (arXiv:1412.1441 §2: every gt has a
+  nearby prior): k-means++ seeding, then a fixed number of Lloyd
+  iterations, in torch on a named device.
 * :func:`generate_priors_multiscale` — SSD-style grid priors: for each
   feature-map resolution, a regular grid of centers × (scale, aspect-ratio)
   shapes (Liu et al., arXiv:1512.02325 §2.2).
@@ -7,8 +11,9 @@
   normalized corner boxes, saved/loaded as pickles (the ``--priors`` flag
   of the CLIs).
 
-The k-means generator that clusters a dataset's ground-truth boxes arrives
-with the training slice.
+The seeding draws from a ``torch.Generator``, not ``jax.random``, so the
+JAX package's priors for a seed are not reproduced; the Lloyd updates
+from given centers are the same computation.
 """
 
 from __future__ import annotations
@@ -18,6 +23,75 @@ import pickle
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from multibox_tpu_torch.device import resolve_device
+
+
+def generate_priors_kmeans(
+    gt_boxes: np.ndarray,
+    num_priors: int,
+    num_iters: int = 50,
+    seed: int = 0,
+    device=None,
+) -> np.ndarray:
+    """K-means clustering of gt boxes in (ymin, xmin, ymax, xmax) space.
+
+    Args:
+      gt_boxes: ``[N, 4]`` normalized corner boxes from the training set.
+      num_priors: number of clusters P.
+      num_iters: fixed Lloyd iterations (deterministic).
+      seed: seed of the k-means++ generator.
+      device: where to cluster (``None`` = CUDA, raises without one).
+
+    Returns ``[P, 4]`` float32 priors, rows sorted lexicographically so the
+    result does not depend on the clusters' order.
+    """
+    device = resolve_device(device)
+    boxes = torch.as_tensor(np.asarray(gt_boxes, np.float32), device=device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    centers = _kmeans_pp_init(gen, boxes, num_priors)
+    out = _lloyd(boxes, centers, num_iters).cpu().numpy()
+    order = np.lexsort((out[:, 3], out[:, 2], out[:, 1], out[:, 0]))
+    return out[order]
+
+
+def _kmeans_pp_init(gen: torch.Generator, points: torch.Tensor, k: int) -> torch.Tensor:
+    """k-means++ seeding (D² sampling): each next center is drawn with
+    probability ∝ squared distance to the nearest chosen one, by inverse
+    CDF as ``jax.random.choice`` draws (all-zero distances pick index 0)."""
+    n = points.shape[0]
+    first = int(torch.randint(n, (), generator=gen, device=points.device))
+    centers = torch.zeros((k, 4), dtype=points.dtype, device=points.device)
+    centers[0] = points[first]
+    d2 = ((points - points[first]) ** 2).sum(-1)
+    for c in range(1, k):
+        cdf = torch.cumsum(d2 / d2.sum().clamp_min(1e-12), 0)
+        r = cdf[-1] * (1.0 - torch.rand((1,), generator=gen, device=points.device))
+        idx = torch.searchsorted(cdf, r).clamp_max(n - 1)
+        nxt = points[idx[0]]
+        centers[c] = nxt
+        d2 = torch.minimum(d2, ((points - nxt) ** 2).sum(-1))
+    return centers
+
+
+def _lloyd(points: torch.Tensor, centers: torch.Tensor, num_iters: int) -> torch.Tensor:
+    """Fixed-iteration Lloyd updates, as the JAX package's ``_lloyd``: each
+    point goes to its nearest center (the first one on equal distances),
+    each center moves to its points' mean, and an empty cluster keeps its
+    center."""
+    k = centers.shape[0]
+    ids = torch.arange(k, device=points.device)
+    for _ in range(num_iters):
+        d2 = ((points[:, None, :] - centers[None, :, :]) ** 2).sum(-1)  # [N, K]
+        nearest = d2 == d2.min(dim=1, keepdim=True).values
+        assign = torch.where(nearest, ids, k).min(dim=1).values
+        one_hot = (assign[:, None] == ids).to(points.dtype)  # [N, K]
+        counts = one_hot.sum(0)
+        sums = one_hot.T @ points
+        centers = torch.where((counts > 0)[:, None],
+                              sums / counts.clamp_min(1.0)[:, None], centers)
+    return centers
 
 
 def generate_priors_multiscale(

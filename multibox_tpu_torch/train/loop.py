@@ -1,5 +1,5 @@
-"""Training loop: host batches → on-device augment → train step → metrics
-and checkpoints.
+"""Training loop: tfrecords → host batches → on-device augment → train
+step → metrics, checkpoints and periodic eval.
 
 - Resumes from the latest checkpoint in ``logdir`` by default.
 - Each step is one call: augmentation, forward, matching, loss, backward,
@@ -8,9 +8,13 @@ and checkpoints.
   are logged.
 - The augmentation's random numbers come from a generator seeded with
   ``(cfg.seed, step)``: deterministic, and the same after a resume.
-- One device: the JAX package's multi-device data parallelism is not
-  ported yet. Nor are its tfrecord pipeline and periodic eval
-  (``eval_tfrecords`` raises) or the slim/keras restore.
+- :func:`train` reads tfrecords through ``data.pipeline.DetectionDataset``
+  (the JAX package's record order); :func:`train_from_batches` takes any
+  stream of host batches. With ``eval_tfrecords`` the loop runs detection
+  and AP over them every ``eval_every_steps`` steps.
+- One process, one device: the JAX package's multi-device and multi-host
+  data parallelism is not ported yet (ROADMAP.md, queue 1, item 18), nor
+  its slim/keras restore (item 15).
 """
 
 from __future__ import annotations
@@ -19,16 +23,16 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.data import augment as augment_mod
-from multibox_tpu_torch.data.pipeline import Prefetcher
+from multibox_tpu_torch.data.pipeline import DetectionDataset, Prefetcher
 from multibox_tpu_torch.device import resolve_device
-from multibox_tpu_torch.inference import build_model
+from multibox_tpu_torch.inference import build_model, make_detect_loop_fns, run_detect_loop
 from multibox_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -148,19 +152,139 @@ def _warm_start_from_logdir(state: TrainState, path: str, device) -> TrainState:
     return state
 
 
+def make_eval_fns(cfg: Config, priors, device):
+    """The detect functions of periodic eval, built once so that repeated
+    evals reuse them. One process: the eval batch is the train batch (the
+    JAX package's per-host share, ``eval_config``, waits for item 18)."""
+    return make_detect_loop_fns(cfg, priors, device=device)
+
+
+def evaluate_state(cfg: Config, state: TrainState, priors, eval_tfrecords,
+                   eval_fns=None, gt=None, device=None):
+    """Run detection + AP over a validation set from the current state.
+
+    Ground truth is read from the tfrecords (full box lists), not from the
+    padded batch, which truncates to ``cfg.max_num_bboxes``. ``gt`` may be
+    passed pre-loaded (the loop reads it once per run): the boxes dict, or
+    a ``(boxes, labels)`` tuple; with labels and ``cfg.num_classes > 1``
+    the summary also carries the per-class protocol (``mAP@0.5``, the
+    per-class APs and ``mAP@[.5:.95]/per_class``)."""
+    from multibox_tpu_torch.cli.evaluate import load_groundtruth
+    from multibox_tpu_torch.evaluate import (
+        evaluate_detections,
+        evaluate_detections_per_class,
+    )
+
+    device = resolve_device(device)
+    dataset = DetectionDataset(
+        eval_tfrecords,
+        batch_size=cfg.batch_size,
+        canvas_size=cfg.input_size,
+        max_num_bboxes=cfg.max_num_bboxes,
+    )
+    gt_labels = None
+    if gt is None:
+        if cfg.num_classes > 1:
+            gt, gt_labels = load_groundtruth(
+                eval_tfrecords, with_labels=True, label_offset=cfg.label_offset)
+        else:
+            gt = load_groundtruth(eval_tfrecords)
+    elif isinstance(gt, tuple):
+        gt, gt_labels = gt
+    results = run_detect_loop(
+        cfg, state.detect_variables(), dataset, priors,
+        fns=eval_fns or make_eval_fns(cfg, priors, device), device=device)
+    summary = evaluate_detections(results, gt)
+    if cfg.num_classes > 1 and gt_labels is not None:
+        per_class = evaluate_detections_per_class(results, gt, gt_labels)
+        # the agnostic COCO mAP above keeps its key; the per-class one
+        # (cocoeval's own protocol) gets its own
+        per_class["mAP@[.5:.95]/per_class"] = per_class.pop("mAP@[.5:.95]")
+        summary.update(per_class)
+    return summary
+
+
+def _log_eval(step: int, metrics) -> None:
+    if "mAP@0.5" in metrics:
+        log.info("eval @%d: AP@0.5=%.3f mAP@0.5(per-class)=%.3f mAP=%.3f recall=%.3f",
+                 step, metrics["AP@0.5"], metrics["mAP@0.5"],
+                 metrics["mAP@[.5:.95]/per_class"], metrics["recall@0.5"])
+    else:
+        log.info("eval @%d: AP@0.5=%.3f mAP=%.3f recall=%.3f", step,
+                 metrics["AP@0.5"], metrics["mAP@[.5:.95]"], metrics["recall@0.5"])
+
+
 def train(
+    cfg: Config,
+    tfrecords: Sequence[str],
+    priors: np.ndarray,
+    logdir: str,
+    pretrained_model: Optional[str] = None,
+    max_steps: Optional[int] = None,
+    use_mesh: bool = True,
+    canvas_size: Optional[int] = None,
+    eval_tfrecords: Optional[Sequence[str]] = None,
+    eval_every_steps: int = 0,
+    schedule_total: Optional[int] = None,
+    shuffle: bool = True,
+    device=None,
+) -> TrainState:
+    """Train from tfrecords; returns the final state. Resumes from
+    ``logdir``'s latest checkpoint when there is one.
+
+    Records are decoded onto a ``canvas_size`` canvas (default
+    ``max(int(1.15·input_size), input_size)``, room for the random crop)
+    by ``DetectionDataset``, repeated and, unless ``shuffle=False``,
+    shuffled with the seed ``cfg.seed + start step``: a resumed run (or each
+    ``--restart_every_steps`` child) does not replay the stream from its
+    top. ``use_mesh`` is accepted for the JAX package's signature; one
+    device is all there is. See :func:`train_from_batches` for the rest.
+    """
+    del use_mesh  # one device (ROADMAP.md, queue 1, item 18)
+    canvas = canvas_size or max(int(cfg.input_size * 1.15), cfg.input_size)
+
+    def batches(start_step: int):
+        dataset = DetectionDataset(
+            tfrecords,
+            batch_size=cfg.batch_size,
+            canvas_size=canvas,
+            max_num_bboxes=cfg.max_num_bboxes,
+            shuffle=shuffle,
+            repeat=True,
+            seed=cfg.seed + start_step,
+            decode_draft=cfg.decode_draft,
+            cache_items=cfg.decode_cache_items,
+            label_offset=cfg.label_offset,
+            # multi-class: an out-of-range label fails loudly on the host
+            num_classes=cfg.num_classes if cfg.num_classes > 1 else None,
+        )
+        keys = ("images", "boxes", "num_boxes") + (
+            ("labels",) if cfg.num_classes > 1 else ())
+        for batch in dataset:
+            yield {k: batch[k] for k in keys}
+
+    return train_from_batches(
+        cfg, batches, priors, logdir, pretrained_model=pretrained_model,
+        max_steps=max_steps, eval_tfrecords=eval_tfrecords,
+        eval_every_steps=eval_every_steps, schedule_total=schedule_total,
+        device=device)
+
+
+def train_from_batches(
     cfg: Config,
     batches: Union[Iterable, Callable[[int], Iterable]],
     priors: np.ndarray,
     logdir: str,
     pretrained_model: Optional[str] = None,
     max_steps: Optional[int] = None,
-    eval_tfrecords=None,
+    eval_tfrecords: Optional[Sequence[str]] = None,
+    eval_every_steps: int = 0,
     schedule_total: Optional[int] = None,
     device=None,
 ) -> TrainState:
-    """Run training on one device; returns the final state. Resumes from
-    ``logdir``'s latest checkpoint when there is one.
+    """Run training on one device over a stream of host batches; returns
+    the final state. Resumes from ``logdir``'s latest checkpoint when there
+    is one.
 
     ``batches`` is an iterable of host batch dicts (``images`` uint8
     ``[B, H, W, 3]`` canvases, ``boxes [B, G, 4]``, ``num_boxes [B]``,
@@ -170,13 +294,12 @@ def train(
 
     ``max_steps`` bounds this invocation and sets the horizon of the LR
     schedule; ``schedule_total`` pins that horizon instead when one run
-    spans several bounded invocations. ``device=None`` is the CUDA device.
+    spans several bounded invocations. With ``eval_tfrecords`` and
+    ``eval_every_steps``, :func:`evaluate_state` runs whenever the step
+    crosses a multiple of ``eval_every_steps``, and its metrics are written
+    with an ``eval/`` prefix. ``device=None`` is the CUDA device.
     """
     device = resolve_device(device)
-    if eval_tfrecords:
-        raise NotImplementedError(
-            "periodic eval (eval_tfrecords) needs evaluate.py and the tfrecord "
-            "pipeline, which are not ported yet; see ROADMAP.md, queue 1, item 8")
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     total = max_steps if max_steps is not None else cfg.max_number_of_steps
@@ -210,6 +333,8 @@ def train(
     profiler = None
     profiled = False
     profile_start_step = start_step
+    eval_fns = None
+    eval_gt = None  # ground truth parsed once per run, not per eval
     pending: list = []
 
     def run_pending(state, pending, step_idx):
@@ -273,6 +398,21 @@ def train(
                 writer.write_images(step_idx, np.asarray(batch["images"]),
                                     np.asarray(batch["boxes"]),
                                     np.asarray(batch["num_boxes"]))
+            if (eval_tfrecords and eval_every_steps
+                    and step_idx // eval_every_steps > prev_step // eval_every_steps):
+                if eval_fns is None:
+                    from multibox_tpu_torch.cli.evaluate import load_groundtruth
+
+                    eval_fns = make_eval_fns(cfg, priors, device)
+                    if cfg.num_classes > 1:
+                        eval_gt = load_groundtruth(eval_tfrecords, with_labels=True,
+                                                   label_offset=cfg.label_offset)
+                    else:
+                        eval_gt = load_groundtruth(eval_tfrecords)
+                summary = evaluate_state(cfg, state, priors, eval_tfrecords, eval_fns,
+                                         gt=eval_gt, device=device)
+                writer.write(step_idx, {f"eval/{k}": v for k, v in summary.items()})
+                _log_eval(step_idx, summary)
             if chunk > 1:
                 # step_idx advances by K: save on crossings of the cadence
                 if step_idx // cfg.save_every_steps > prev_step // cfg.save_every_steps:

@@ -55,7 +55,7 @@ def multibox_loss(
       num_gt: ``[B]`` valid gt count per image.
       priors: ``[P, 4]``.
       alpha: location-loss weight.
-      matching: "greedy" ("hungarian" is not ported yet and raises).
+      matching: "greedy" | "hungarian" (exact, ``ops.matching.hungarian_match``).
       hybrid_conf_weight: >0 → loss-aware matching (1412.1441 §2.1).
       hard_negative_ratio: negatives kept per positive (0 → keep all).
       multi_match_iou: >0 → SSD dense matching on top of the bipartite one.

@@ -12,6 +12,11 @@ import pytest
 import torch
 
 from multibox_tpu_torch import inference as tinf
+from multibox_tpu_torch import priors as tpriors
+from multibox_tpu_torch.cli import detect as cli_detect
+from multibox_tpu_torch.cli import evaluate as cli_evaluate
+from multibox_tpu_torch.cli import priors as cli_priors
+from multibox_tpu_torch.cli import train as cli_train
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.models import convert
@@ -19,7 +24,12 @@ from multibox_tpu_torch.models.detector import MultiBoxDetector
 from multibox_tpu_torch.ops import kernels
 from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, match_kernel, nms_kernel
 from multibox_tpu_torch.train import create_train_state, make_train_step
-from multibox_tpu_torch.train.loop import make_augmented_train_step, train
+from multibox_tpu_torch.train.loop import (
+    evaluate_state,
+    make_augmented_train_step,
+    train,
+    train_from_batches,
+)
 from multibox_tpu_torch.utils.checkpoint import CheckpointManager
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -99,11 +109,23 @@ def CheckpointManager_restore():
         lambda: make_augmented_train_step(Config(**SMALL), None, PRIORS),
         lambda: train(Config(**SMALL), [], PRIORS, "unused_logdir"),
         lambda: CheckpointManager_restore(),
+        lambda: train_from_batches(Config(**SMALL), [], PRIORS, "unused_logdir"),
+        lambda: evaluate_state(Config(**SMALL), None, PRIORS, []),
+        lambda: tpriors.generate_priors_kmeans(PRIORS, 2),
+        lambda: cli_detect.run_detection(Config(**SMALL), [], PRIORS, "unused_logdir"),
+        lambda: cli_priors.main(["--output", "unused.pkl", "--mode", "multiscale"]),
+        lambda: cli_train.main(["--tfrecords", "unused", "--priors", "unused",
+                                "--logdir", "unused_logdir"]),
+        lambda: cli_detect.main(["--tfrecords", "unused", "--priors", "unused",
+                                 "--checkpoint_path", "unused", "--output", "unused.pkl"]),
+        lambda: cli_evaluate.main(["--tfrecords", "unused", "--detections", "unused.pkl"]),
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
          "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
          "detector", "create_train_state", "make_train_step",
-         "make_augmented_train_step", "train", "checkpoint_restore"],
+         "make_augmented_train_step", "train", "checkpoint_restore", "train_from_batches",
+         "evaluate_state", "generate_priors_kmeans", "run_detection", "cli_priors",
+         "cli_train", "cli_detect", "cli_evaluate"],
 )
 def test_entry_points_raise_without_cuda_when_device_is_unset(call):
     needs_no_cuda()

@@ -104,10 +104,18 @@ def test_bce_helpers_match_jax():
 
 
 def test_hungarian_matching_is_refused():
+    """Hungarian matching was refused until it was ported: it now gives the
+    JAX package's loss (rtol 1e-5, as above), and an unknown method is
+    refused."""
     priors, gt, num_gt, loc, conf, _ = loss_inputs(3, False)
-    with pytest.raises(NotImplementedError, match="hungarian"):
-        tloss.multibox_loss(t(loc), t(conf), t(gt), t(num_gt), t(priors),
-                            matching="hungarian")
+    want_total, _ = jloss.multibox_loss(*[jnp.asarray(a) for a in (loc, conf, gt, num_gt,
+                                                                   priors)],
+                                        matching="hungarian")
+    got_total, _ = tloss.multibox_loss(t(loc), t(conf), t(gt), t(num_gt), t(priors),
+                                       matching="hungarian")
+    np.testing.assert_allclose(float(got_total), float(want_total), rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown matching method"):
+        tloss.multibox_loss(t(loc), t(conf), t(gt), t(num_gt), t(priors), matching="nope")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -166,8 +166,13 @@ def test_match_priors_matches_jax_and_refuses_hungarian():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy().astype(np.float64),
                                    np.asarray(w).astype(np.float64), rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        tm.match_priors(t(gt), torch.tensor(3), t(priors), method="hungarian")
+    # Hungarian was refused until it was ported; now it is the JAX package's
+    want = jm.match_priors(jnp.asarray(gt), jnp.int32(3), jnp.asarray(priors),
+                           method="hungarian")
+    got = tm.match_priors(t(gt), torch.tensor(3), t(priors), method="hungarian")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy().astype(np.float64),
+                                   np.asarray(w).astype(np.float64), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="unknown matching method"):
         tm.match_priors(t(gt), torch.tensor(3), t(priors), method="nope")
 

@@ -1,7 +1,7 @@
 """The port's training surface around the step, on the CPU: learning-rate
 schedules and optimizers against optax, train-time augmentation against
 the JAX package on replayed random draws, the checkpoint manager, the
-chunked and rematerialized steps, and ``train()`` resuming.
+chunked and rematerialized steps, and ``train_from_batches()`` resuming.
 
 Tolerances: schedules rtol 1e-6 (float32 arithmetic in both); optimizers
 1e-6 after five steps (float32 rsqrt/sqrt rounding); augmentation images
@@ -33,7 +33,7 @@ from multibox_tpu_torch.train.loop import (
     make_augmented_train_step,
     make_chunked_step,
     step_generator,
-    train,
+    train_from_batches,
 )
 from multibox_tpu_torch.utils.checkpoint import CheckpointManager
 from tests.conftest import random_boxes
@@ -379,12 +379,14 @@ def test_train_resumes_from_its_checkpoint(tmp_path, chunk):
     stream = lambda start: iter(data[start:])  # noqa: E731
     resumed, whole_dir = tmp_path / "resumed", tmp_path / "whole"
     try:
-        first = train(cfg, stream, PRIORS, str(resumed), max_steps=3, schedule_total=5,
-                      device="cpu")
+        first = train_from_batches(cfg, stream, PRIORS, str(resumed), max_steps=3,
+                                   schedule_total=5, device="cpu")
         assert first.step == 3 and CheckpointManager(str(resumed)).latest_step() == 3
-        second = train(cfg, stream, PRIORS, str(resumed), max_steps=5, device="cpu")
+        second = train_from_batches(cfg, stream, PRIORS, str(resumed), max_steps=5,
+                                    device="cpu")
         assert second.step == 5 and CheckpointManager(str(resumed)).all_steps() == [5]
-        whole = train(cfg, stream, PRIORS, str(whole_dir), max_steps=5, device="cpu")
+        whole = train_from_batches(cfg, stream, PRIORS, str(whole_dir), max_steps=5,
+                                   device="cpu")
         assert_states_equal(second, whole)
         assert second.opt_state["count"] == 5
         logged = read_metrics(str(resumed))
@@ -435,7 +437,8 @@ def test_train_profiles_and_writes_image_summaries(tmp_path):
                     keep_checkpoints=1, augment=False)
     logdir = tmp_path / "run"
     try:
-        state = train(cfg, host_batches(3), PRIORS, str(logdir), max_steps=3, device="cpu")
+        state = train_from_batches(cfg, host_batches(3), PRIORS, str(logdir), max_steps=3,
+                                   device="cpu")
         assert state.step == 3
         assert (logdir / "trace.json").exists()
         assert [r["step"] for r in read_metrics(str(logdir))] == [1, 2, 3]
@@ -458,8 +461,6 @@ def test_burn_boxes_draws_the_box_outline():
 
 def test_train_refuses_what_is_not_ported(tmp_path):
     cfg = small_cfg()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train(cfg, [], PRIORS, str(tmp_path / "a"), eval_tfrecords=["x.tfrecord"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
-        train(cfg, [], PRIORS, str(tmp_path / "b"), max_steps=1,
-              pretrained_model=str(tmp_path / "model.ckpt"), device="cpu")
+        train_from_batches(cfg, [], PRIORS, str(tmp_path / "b"), max_steps=1,
+                           pretrained_model=str(tmp_path / "model.ckpt"), device="cpu")
