@@ -27,7 +27,30 @@ read just after) and that what comes out is right, stage by stage:
   kernel) for 4 steps with an eval every 3, resumed to 6, then
   ``cli.detect`` (configs/cub_detect.yaml) and ``cli.evaluate``; Hungarian
   matching of one batch (B=32, G=16, P=256) on the card against the CPU
-  and scipy, its ms and exit tests a call.
+  and scipy, its ms and exit tests a call;
+- ssd: configs/ssd_multiscale.yaml at full width (Inception-v3 299, the
+  SSD head over Mixed_5d / Mixed_6e / Mixed_7c, 35² / 17² / 8² grids, 6
+  priors a cell from ``cli.priors --mode multiscale``: P = 9,468; batch
+  32, G = 16, dense matching at 0.5, center/log-scale encoding):
+  ``train_from_batches`` with use_pallas=True for 6 steps (the matching
+  kernel on its global-scratch route, held exactly against its plain
+  version on the step's own boxes and timed), one batch overfitted,
+  detect as shipped over 3 batches (the NMS kernel at P = 9,468, K = 100,
+  exact at the path's own inputs), the same model at 20 classes (2 steps,
+  one detect batch: the per-class sweep to 1,024 candidates, NMS with
+  class offsets, exact), and ``cli.train.main --config
+  configs/ssd_multiscale.yaml`` as shipped (no kernel) for 2 steps on the
+  cli phase's records;
+- mobilenet: configs/mobilenet_edge.yaml at full width (MobileNetV2 1.0 at
+  224, the MultiBox head over Final 7² × 1,280, P = 128, batch 64, K =
+  20): detect as shipped (NMS kernel) and with use_pallas=True (NMS, the
+  head's three matmuls, decode) over 3 batches each, the kernel head and
+  postprocess against the plain ones, the BN-folded model (γ folded)
+  against the unfolded one, then ``train_from_batches`` with
+  use_pallas=True for 6 steps (the matmul kernel forward and backward,
+  encode, matching at P = 128), with the head's gradients and one step
+  against the plain path; the head's three matmuls timed forward and
+  backward.
 
 Every phase prints one JSON line; any failure raises and the process exits
 non-zero. Needs one CUDA device; without one it exits with code 2 and
@@ -49,7 +72,13 @@ the head's gradients through the kernel against the plain head rtol 1e-3
 / atol 1e-4 of the largest entry (forward sums in another order, then
 products over up to 6144 terms); one train step with kernels against one
 without, loss rtol 1e-4 and head parameters rtol 1e-4 / atol 1e-5 (one
-update of at most lr·√10).
+update of at most lr·√10). Phases ssd and mobilenet: the NMS kernel's
+indices, counts and scores exact and the matching kernel's assignments
+exact at the inputs their paths gave them; the MobileNet head through
+the kernels against the plain head rtol 1e-4 / atol 1e-4 and its
+detections exact on the same logits; the folded MobileNet against the
+unfolded one in float32 within 1e-3 of the largest output (in bfloat16,
+as shipped, the gap is reported); launch counts exact per path.
 """
 
 from __future__ import annotations
@@ -80,8 +109,10 @@ from multibox_tpu_torch.device import resolve_device  # noqa: E402
 from multibox_tpu_torch import inference  # noqa: E402
 from multibox_tpu_torch.data import augment  # noqa: E402
 from multibox_tpu_torch.models import detector as detector_mod  # noqa: E402
+from multibox_tpu_torch.models import mobilenet  # noqa: E402
 from multibox_tpu_torch.models.inception_v3 import (  # noqa: E402
     ConvBN,
+    feature_grid,
     fold_batch_norms,
     fused_unit_shapes,
 )
@@ -261,6 +292,22 @@ def nms_entry(name, b, s, Kout, iou, thr, plain=False):
     return entry
 
 
+def nms_exact(name, tb, ts, Kout, iou, thr) -> float:
+    """B1 against its plain version: indices, scores and counts exact.
+    Returns the largest score difference (0)."""
+    got = nms_kernel.nms_cuda_batched(tb, ts, Kout, iou, thr)
+    torch.cuda.synchronize()
+    want_idx, want_scores = nms_kernel.nms_batched_plain(tb, ts, Kout, iou, thr)
+    if not torch.equal(got[2], want_idx):
+        bad = (got[2] != want_idx).nonzero()[:5].tolist()
+        raise AssertionError(f"nms[{name}]: indices differ at {bad}")
+    if not torch.equal(got[1], want_scores):
+        raise AssertionError(f"nms[{name}]: scores differ")
+    if not torch.equal(got[3].to(torch.int64), (want_idx >= 0).sum(1)):
+        raise AssertionError(f"nms[{name}]: counts differ")
+    return float((got[1] - want_scores).abs().max())
+
+
 def check_nms(rng):
     """Indices, counts and scores exact on every case. Returns the entry of
     the contract line, timed at the main path's shape (B=32, P=256, K=100),
@@ -268,18 +315,7 @@ def check_nms(rng):
     cases = nms_cases(rng)
     worst = 0.0
     for name, b, s, Kout, iou, thr in cases:
-        tb, ts = dev(b), dev(s)
-        got = nms_kernel.nms_cuda_batched(tb, ts, Kout, iou, thr)
-        torch.cuda.synchronize()
-        want_idx, want_scores = nms_kernel.nms_batched_plain(tb, ts, Kout, iou, thr)
-        if not torch.equal(got[2], want_idx):
-            bad = (got[2] != want_idx).nonzero()[:5].tolist()
-            raise AssertionError(f"nms[{name}]: indices differ at {bad}")
-        if not torch.equal(got[1], want_scores):
-            raise AssertionError(f"nms[{name}]: scores differ")
-        if not torch.equal(got[3].to(torch.int64), (want_idx >= 0).sum(1)):
-            raise AssertionError(f"nms[{name}]: counts differ")
-        worst = max(worst, float((got[1] - want_scores).abs().max()))
+        worst = max(worst, nms_exact(name, dev(b), dev(s), Kout, iou, thr))
     # a kept list that does not fit beside the sort keys is refused, not launched
     try:
         nms_kernel.nms_select(torch.zeros(1, 9468, 4, device=DEV),
@@ -330,6 +366,40 @@ def time_matmul(x, w, b, relu, plain=True):
     return ms, plain_ms, library_ms
 
 
+def forward_entry(rng, name, M, Kd, N, relu, dtype, host=False):
+    """B2 on one shape: against the plain version (f32 rtol 1e-4 / atol
+    1e-4, bf16 2e-2), a second launch bit-equal, then timed beside the
+    plain version and ``torch.addmm``."""
+    x, w, b = matmul_inputs(rng, M, Kd, N, dtype)
+    got = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
+    again = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
+    torch.cuda.synchronize()
+    want = fused_matmul.fused_matmul_plain(x, w, b, relu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    if got.dtype != x.dtype or got.shape != (M, N):
+        raise AssertionError(f"fused_matmul[{name}]: wrong dtype or shape")
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"fused_matmul[{name}]: {m}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused_matmul[{name}]: two launches differ")
+    plan = fused_matmul._plan(M, Kd, N, dtype)
+    bound_ms, bound_by = matmul_bound(M, Kd, N, dtype)
+    entry = {"name": name, "M": M, "K": Kd, "N": N, "relu": relu,
+             "dtype": str(dtype).replace("torch.", ""), "route": plan.route,
+             "split_k": plan.split_k, "blocks": plan.blocks,
+             "max_abs_err": float((got.float() - want.float()).abs().max()),
+             "bit_equal_relaunch": True, "bound_ms": bound_ms, "bound_by": bound_by}
+    entry["ms"], entry["plain_ms"], entry["library_ms"] = time_matmul(x, w, b, relu)
+    entry["share_of_bound"] = bound_ms / entry["ms"]
+    if host:
+        bias = b.to(dtype)
+        entry["host_us_per_call"] = {
+            "kernel": host_us(lambda: fused_matmul.fused_matmul_bias_relu(x, w, b, relu)),
+            "torch.addmm": host_us(lambda: torch.addmm(bias, x, w).relu_()),
+        }
+    return entry
+
+
 def check_fused_matmul(rng):
     """f32 rtol 1e-4 / atol 1e-4 (sums over up to K = 6144 in another order
     than the plain version's), bf16 output rtol 2e-2 / atol 2e-2. Every
@@ -362,38 +432,12 @@ def check_fused_matmul(rng):
     shapes, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": []}
     for name, M, Kd, N, relu, dtype in head + other:
-        x, w, b = matmul_inputs(rng, M, Kd, N, dtype)
-        got = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
-        again = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
-        torch.cuda.synchronize()
-        want = fused_matmul.fused_matmul_plain(x, w, b, relu)
-        tol = 1e-4 if dtype == f32 else 2e-2
-        if got.dtype != x.dtype or got.shape != (M, N):
-            raise AssertionError(f"fused_matmul[{name}]: wrong dtype or shape")
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
-                                   msg=lambda m: f"fused_matmul[{name}]: {m}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"fused_matmul[{name}]: two launches differ")
-        err = float((got.float() - want.float()).abs().max())
-        plan = fused_matmul._plan(M, Kd, N, dtype)
-        bound_ms, bound_by = matmul_bound(M, Kd, N, dtype)
-        entry = {"name": name, "M": M, "K": Kd, "N": N, "relu": relu,
-                 "dtype": str(dtype).replace("torch.", ""), "route": plan.route,
-                 "split_k": plan.split_k, "blocks": plan.blocks, "max_abs_err": err,
-                 "bit_equal_relaunch": True, "bound_ms": bound_ms, "bound_by": bound_by}
-        entry["ms"], entry["plain_ms"], entry["library_ms"] = time_matmul(x, w, b, relu)
-        entry["share_of_bound"] = bound_ms / entry["ms"]
-        if name in main:
-            bias = b.to(dtype)
-            entry["host_us_per_call"] = {
-                "kernel": host_us(lambda: fused_matmul.fused_matmul_bias_relu(x, w, b, relu)),
-                "torch.addmm": host_us(lambda: torch.addmm(bias, x, w).relu_()),
-            }
+        entry = forward_entry(rng, name, M, Kd, N, relu, dtype, host=name in main)
         if name in ("Bottleneck", "Locations", "Confidences"):
-            worst = max(worst, err)
+            worst = max(worst, entry["max_abs_err"])
             for key in ("ms", "plain_ms", "library_ms"):
                 totals[key] += entry[key]
-            totals["bound"].append((bound_ms, bound_by))
+            totals["bound"].append((entry["bound_ms"], entry["bound_by"]))
         shapes.append(entry)
     shapes.append(check_folded_units(rng))
     routes = {e["route"] for e in shapes if "route" in e}
@@ -594,6 +638,40 @@ def check_match(rng):
     }
 
 
+def backward_entry(rng, name, M, Kd, N, relu):
+    """B2' on one shape (see :func:`check_fused_backward`)."""
+    x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32))
+    w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32))
+    b = dev(rng.normal(0, 0.1, N).astype(np.float32))
+    g = dev(rng.normal(0, 1, (M, N)).astype(np.float32))
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
+    y = fused_matmul.fused_matmul_bias_relu(*leaves, relu)
+    got = torch.autograd.grad(y, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    mask = (y.detach() > 0) if relu else torch.ones_like(g, dtype=torch.bool)
+    y_plain = fused_matmul.fused_matmul_plain(*leaves, False)
+    want = torch.autograd.grad(y_plain, leaves, torch.where(mask, g, 0.0),
+                               retain_graph=True)
+    flips = int(((fused_matmul.fused_matmul_plain(x, w, b, relu) > 0) != mask).sum()) \
+        if relu else 0
+    worst = 0.0
+    for part, a, c in zip(("dx", "dw", "db"), got, want):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"fused_backward[{name}.{part}]: {m}")
+        worst = max(worst, float((a - c).abs().max()))
+    yd = y.detach()
+    ms = time_ms(lambda: fused_matmul.fused_matmul_backward(x, w, b, yd, g, relu))
+    y_ref = fused_matmul.fused_matmul_plain(*leaves, relu)
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_ref, leaves, g, retain_graph=True))
+    library_ms = time_ms(lambda: (g @ w.T, x.T @ g, g.sum(0)))
+    nbytes = (2 * M * Kd + Kd * N + (2 if relu else 1) * M * N + Kd * N + N) * 4
+    bound_ms, bound_by = bound(nbytes, 4.0 * M * Kd * N + M * N, "float32")
+    return {"name": name, "M": M, "K": Kd, "N": N, "relu": relu, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "mask_flips_between_forwards": flips}
+
+
 def check_fused_backward(rng):
     """B2': the autograd backward of the fused layer (kernel forward, the
     JAX package's backward in torch.matmul) against autograd through the
@@ -607,38 +685,12 @@ def check_fused_backward(rng):
     for name, M, Kd, N, relu in (("Bottleneck", 2048, 2048, 96, True),
                                  ("Locations", 32, 6144, 1024, False),
                                  ("Confidences", 32, 6144, 256, False)):
-        x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32))
-        w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32))
-        b = dev(rng.normal(0, 0.1, N).astype(np.float32))
-        g = dev(rng.normal(0, 1, (M, N)).astype(np.float32))
-        leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
-        y = fused_matmul.fused_matmul_bias_relu(*leaves, relu)
-        got = torch.autograd.grad(y, leaves, g, retain_graph=True)
-        torch.cuda.synchronize()
-        mask = (y.detach() > 0) if relu else torch.ones_like(g, dtype=torch.bool)
-        y_plain = fused_matmul.fused_matmul_plain(*leaves, False)
-        want = torch.autograd.grad(y_plain, leaves, torch.where(mask, g, 0.0),
-                                   retain_graph=True)
-        flips = int(((fused_matmul.fused_matmul_plain(x, w, b, relu) > 0) != mask).sum()) \
-            if relu else 0
-        for part, a, c in zip(("dx", "dw", "db"), got, want):
-            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4,
-                                       msg=lambda m: f"fused_backward[{name}.{part}]: {m}")
-            worst = max(worst, float((a - c).abs().max()))
-        yd = y.detach()
-        ms = time_ms(lambda: fused_matmul.fused_matmul_backward(x, w, b, yd, g, relu))
-        y_ref = fused_matmul.fused_matmul_plain(*leaves, relu)
-        plain_ms = time_ms(lambda: torch.autograd.grad(y_ref, leaves, g, retain_graph=True))
-        library_ms = time_ms(lambda: (g @ w.T, x.T @ g, g.sum(0)))
-        nbytes = (2 * M * Kd + Kd * N + (2 if relu else 1) * M * N + Kd * N + N) * 4
-        bound_ms, bound_by = bound(nbytes, 4.0 * M * Kd * N + M * N, "float32")
-        shapes.append({"name": name, "M": M, "K": Kd, "N": N, "relu": relu,
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "mask_flips_between_forwards": flips})
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms)):
-            totals[key] += val
-        totals["bound"].append((bound_ms, bound_by))
+        entry = backward_entry(rng, name, M, Kd, N, relu)
+        worst = max(worst, entry["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms"):
+            totals[key] += entry[key]
+        totals["bound"].append((entry["bound_ms"], entry["bound_by"]))
+        shapes.append(entry)
     return {
         "name": "fused_matmul_backward", "route": "torch.matmul (the JAX package's "
         "backward is plain products too), around the CUDA forward",
@@ -668,6 +720,9 @@ def make_variables(model, gen):
     for name in list(variables["params"]):
         if name.endswith("BatchNorm.bias"):
             variables["params"][name] = 0.1 * rand(variables["params"][name].shape)
+        elif name.endswith("BatchNorm.scale"):  # MobileNetV2's γ, so the fold uses it
+            variables["params"][name] = 0.75 + 0.5 * torch.rand(
+                variables["params"][name].shape, generator=gen).to(DEV)
     for name, value in list(variables["batch_stats"].items()):
         if name.endswith(".mean"):
             variables["batch_stats"][name] = 0.1 * rand(value.shape)
@@ -722,10 +777,10 @@ def head_against_plain(cfg, model, variables, priors, images_u8):
     with torch.no_grad():
         images = preprocess_eval(dev(images_u8), cfg.input_size)
         endpoints = functional_call(
-            model.InceptionV3, sub_vars(variables, "InceptionV3"), (images,))
-        head_vars = sub_vars(variables, "MultiBoxHead")
-        loc_k, conf_k = functional_call(model.MultiBoxHead, head_vars, (endpoints,))
-        loc_p, conf_p = functional_call(plain_model.MultiBoxHead, head_vars, (endpoints,))
+            model.backbone, sub_vars(variables, model.backbone_scope), (images,))
+        head_vars = sub_vars(variables, model.head_scope)
+        loc_k, conf_k = functional_call(model.head, head_vars, (endpoints,))
+        loc_p, conf_p = functional_call(plain_model.head, head_vars, (endpoints,))
         torch.testing.assert_close(loc_k, loc_p, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(conf_k, conf_p, rtol=1e-4, atol=1e-4)
         priors = dev(priors)
@@ -750,10 +805,10 @@ def stage_times(cfg, model, variables, priors, images_u8):
     with torch.no_grad():
         u8 = dev(images_u8)
         images = preprocess_eval(u8, cfg.input_size)
-        backbone_vars = sub_vars(variables, "InceptionV3")
-        head_vars = sub_vars(variables, "MultiBoxHead")
-        endpoints = functional_call(model.InceptionV3, backbone_vars, (images,))
-        loc, conf = functional_call(model.MultiBoxHead, head_vars, (endpoints,))
+        backbone_vars = sub_vars(variables, model.backbone_scope)
+        head_vars = sub_vars(variables, model.head_scope)
+        endpoints = functional_call(model.backbone, backbone_vars, (images,))
+        loc, conf = functional_call(model.head, head_vars, (endpoints,))
         tpriors = dev(priors)
 
         def timed(fn):
@@ -765,9 +820,9 @@ def stage_times(cfg, model, variables, priors, images_u8):
         return {
             "preprocess_ms": timed(lambda: preprocess_eval(u8, cfg.input_size)),
             "backbone_ms": timed(lambda: functional_call(
-                model.InceptionV3, backbone_vars, (images,))),
+                model.backbone, backbone_vars, (images,))),
             "head_ms": timed(lambda: functional_call(
-                model.MultiBoxHead, head_vars, (endpoints,))),
+                model.head, head_vars, (endpoints,))),
             "postprocess_ms": timed(lambda: inference._pack_dets(
                 inference.postprocess(loc, conf, tpriors, cfg))),
         }
@@ -941,39 +996,34 @@ def make_train_data(rng, batches, cfg, canvas):
 
 def train_stage_checks(cfg, model, state, priors, batch):
     """Stage by stage on one augmented batch: B4 against its plain version
-    (exact); the head's gradients through the kernel (B2 forward and
-    backward) against the plain head on the same endpoints and targets;
-    one whole step with use_pallas=True against use_pallas=False from the
-    same state, batch and generator."""
+    (exact, then timed: :func:`match_at_step_boxes`); the head's gradients
+    through the kernel (B2 forward and backward) against the plain head on
+    the same endpoints and targets; one whole step with use_pallas=True
+    against use_pallas=False from the same state, batch and generator."""
     tpriors = dev(priors)
-    gen = train_loop.step_generator(cfg.seed, state.step, DEV)
-    db = train_loop._device_batch(batch, DEV)
-    images, boxes, num = augment.augment_batch(gen, db["images"], db["boxes"],
-                                               db["num_boxes"], cfg)
-    got = match_kernel.greedy_match_cuda(boxes, num, tpriors)
-    torch.cuda.synchronize()
-    if not torch.equal(got, match_kernel.greedy_match_plain(boxes, num, tpriors)):
-        raise AssertionError("B4 differs from its plain version on the step's own boxes")
+    images, boxes, num = augmented(cfg, state, batch)
+    b4 = match_at_step_boxes("train", boxes, num, tpriors)
 
     plain_cfg = dataclasses.replace(cfg, use_pallas=False)
     plain_model = inference.build_model(plain_cfg, model.num_priors, device=DEV)
+    scope, endpoint = model.backbone_scope, model.head.endpoint
     with torch.no_grad():
         endpoints = functional_call(
-            model.InceptionV3, {**sub_vars({"params": state.params}, "InceptionV3"),
-                                **sub_vars({"batch_stats": state.batch_stats}, "InceptionV3")},
+            model.backbone, sub_vars({"params": state.params,
+                                      "batch_stats": state.batch_stats}, scope),
             (images,), {"train": True})
     grads = {}
     for tag, m in (("kernel", model), ("plain", plain_model)):
         # in float32, as the head takes it: the gradient is compared before
         # its cast to the backbone's bfloat16
-        feat = endpoints["Mixed_7c"].detach().float().requires_grad_(True)
+        feat = endpoints[endpoint].detach().float().requires_grad_(True)
         head = {k: v.detach().clone().requires_grad_(True)
                 for k, v in sub_vars({"params": state.params}, "MultiBoxHead").items()}
-        loc, conf = functional_call(m.MultiBoxHead, head, ({"Mixed_7c": feat},))
+        loc, conf = functional_call(m.MultiBoxHead, head, ({endpoint: feat},))
         total, _ = train_loss.multibox_loss(loc, conf, boxes, num, tpriors, use_pallas=False)
         keys = sorted(head)
         out = torch.autograd.grad(total, [head[k] for k in keys] + [feat])
-        grads[tag] = dict(zip(keys + ["Mixed_7c"], out))
+        grads[tag] = dict(zip(keys + [endpoint], out))
     worst = {}
     for k, want in grads["plain"].items():
         scale = float(want.abs().max())
@@ -997,7 +1047,7 @@ def train_stage_checks(cfg, model, state, priors, batch):
                                        msg=lambda m: f"head param {k} after one step: {m}")
             head_err = max(head_err, float((results["kernel"][0].params[k] - v).detach()
                                            .abs().max()))
-    return {"b4_on_step_boxes": "exact", "head_grad_rel_err": worst,
+    return {"b4_on_step_boxes": b4, "head_grad_rel_err": worst,
             "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
             "step_head_param_max_abs_err": head_err}
 
@@ -1122,27 +1172,13 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
 
     # steady steps on the host clock, then overfit one fixed batch
     step_fn = train_loop.make_augmented_train_step(cfg, model, priors, device=DEV)
-    st = state.clone()
-    st, _ = step_fn(st, data[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in data[1:6]:
-        st, _ = step_fn(st, b)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) * 1e3 / 5
+    ms_step, st = timed_steps(step_fn, state, data[:6])
     if profile_it:
         st, prof = profile_train(step_fn, st, data[6:9])
         out["profile"] = prof
     del st
-    ocfg = dataclasses.replace(cfg, augment=False)
-    ostep = train_loop.make_augmented_train_step(ocfg, model, priors, device=DEV)
-    so, overfit = state.clone(), []
-    for _ in range(overfit_steps):
-        so, m = ostep(so, data[0])
-        overfit.append(float(m["loss"]))
-    if not (all(math.isfinite(x) for x in overfit) and overfit[-1] < overfit[0]):
-        raise AssertionError(f"overfit one batch: loss {overfit[0]} -> {overfit[-1]}")
-    del so, state
+    overfit = overfit_one_batch(cfg, model, state, priors, data[0], overfit_steps)
+    del state
     torch.cuda.empty_cache()
 
     out.update({
@@ -1225,7 +1261,8 @@ def phase_cli(rng, card_line):
     ``cli.train.main --config configs/voc_train.yaml`` (Hungarian matching,
     use_pallas unset, periodic eval) for 4 steps and resumed to 6,
     ``cli.detect.main`` with configs/cub_detect.yaml, ``cli.evaluate.main``.
-    Returns the kernels' launch counts of the phase."""
+    Returns the kernels' launch counts of the phase and the path of its
+    train records (phase ``ssd`` trains on them and removes them)."""
     from importlib.util import find_spec
 
     from multibox_tpu_torch.cli import detect as cli_detect
@@ -1340,7 +1377,8 @@ def phase_cli(rng, card_line):
                 "data_ms_per_batch": (time.perf_counter() - t1) * 1e3 / 6})
     stream.close()
     out.update(hungarian_on_the_card(batch["boxes"], batch["num_boxes"], priors))
-    shutil.rmtree(root, ignore_errors=True)  # each checkpoint is some 350 MB
+    # each checkpoint is some 350 MB; the train records stay for phase ssd
+    shutil.rmtree(logdir, ignore_errors=True)
 
     ips = [r["images_per_sec"] for r in steps_logged]
     out.update({
@@ -1356,7 +1394,403 @@ def phase_cli(rng, card_line):
         "detect_cli_images_per_s": images / detect_seconds,
         "eval_metrics": metrics})
     emit(out)
-    return counts
+    return counts, train_rec
+
+
+# --------------------------------------------------------------------------
+# the SSD multi-scale and MobileNetV2 configurations
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def nms_inputs_seen():
+    """Within the block, each ``nms_kernel.nms_select`` call of the path
+    (``ops.nms.batched_nms`` calls it through the module) also records a
+    copy of its boxes and scores and its arguments, so B1 can be held
+    against its plain version at exactly the inputs the path gave it."""
+    seen, real = [], nms_kernel.nms_select
+
+    def spy(boxes, scores, *args):
+        seen.append((boxes.clone(), scores.clone(), args))
+        return real(boxes, scores, *args)
+
+    nms_kernel.nms_select = spy
+    try:
+        yield seen
+    finally:
+        nms_kernel.nms_select = real
+
+
+def nms_at_path_inputs(name, seen):
+    """B1 on the first input a path gave it: indices, scores and counts
+    exact against the plain version, then timed (``nms_entry``)."""
+    boxes, scores, (Kout, iou, thr) = seen[0]
+    nms_exact(f"{name} at the path's inputs", boxes, scores, Kout, iou, thr)
+    return nms_entry(name, boxes.cpu().numpy(), scores.cpu().numpy(), Kout, iou, thr, plain=True)
+
+
+def augmented(cfg, state, batch):
+    """The step's own augmented ``(images, boxes, num)`` of one host batch."""
+    gen = train_loop.step_generator(cfg.seed, state.step, DEV)
+    db = train_loop._device_batch(batch, DEV)
+    return augment.augment_batch(gen, db["images"], db["boxes"], db["num_boxes"], cfg)
+
+
+def match_at_step_boxes(name, boxes, num, tpriors):
+    """B4 on one augmented batch of the path (the step's own boxes):
+    assignments exact against the plain version, then timed, with the
+    bound from the rounds this data needs. Reports the route (shared
+    memory, or the global scratch when G·P·4 bytes do not fit)."""
+    got = match_kernel.greedy_match_cuda(boxes, num, tpriors)
+    torch.cuda.synchronize()
+    if not torch.equal(got, match_kernel.greedy_match_plain(boxes, num, tpriors)):
+        raise AssertionError(f"match[{name}]: differs from the plain version on the step's boxes")
+    B, G = boxes.shape[:2]
+    P = tpriors.shape[0]
+    n = num.cpu().numpy()
+    ms = time_ms(lambda: match_kernel.greedy_match_cuda(boxes, num, tpriors))
+    bound_ms, bound_by = bound(B * G * 16 + B * 4 + P * 16 + B * G * 4, match_work(n, G, P),
+                               "float32")
+    scratch = kernels.load_library().mbx_greedy_match_scratch_floats(G, P) > 0
+    return {"shape": f"B={B} G={G} P={P}", "route": "global scratch" if scratch else "shared",
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "library_ms": None,
+            "plain_ms": time_ms(lambda: match_kernel.greedy_match_plain(boxes, num, tpriors),
+                                reps=5, warmup=1),
+            "rounds_run": int(np.minimum(n, P).sum()),
+            "rounds_slowest_image": int(np.minimum(n, P).max())}
+
+
+def timed_steps(step_fn, state, data):
+    """ms a step on the host clock over ``data[1:]``, after ``data[0]``,
+    from a copy of ``state``; returns the ms and the stepped copy."""
+    st = state.clone()
+    st, _ = step_fn(st, data[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in data[1:]:
+        st, _ = step_fn(st, b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (len(data) - 1), st
+
+
+def counted(fn, want, what):
+    """Run ``fn`` with every launch count set to 0 just before; the counts
+    just after must equal ``want`` (names left out: 0)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {full}")
+    return out, counts
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def overfit_one_batch(cfg, model, state, priors, batch, steps):
+    ocfg = dataclasses.replace(cfg, augment=False)
+    ostep = train_loop.make_augmented_train_step(ocfg, model, priors, device=DEV)
+    so, losses = state.clone(), []
+    for _ in range(steps):
+        so, m = ostep(so, batch)
+        losses.append(float(m["loss"]))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"overfit one batch: loss {losses[0]} -> {losses[-1]}")
+    return losses
+
+
+def logged_losses(logdir, steps):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in logged if "loss" in r]
+    if [r["step"] for r in logged if "loss" in r][-1:] != [steps] or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train log {logged}")
+    return logged
+
+
+def phase_ssd(rng, gen, card_line, records, train_steps=6, overfit_steps=12):
+    """configs/ssd_multiscale.yaml at full width: Inception-v3 299, the SSD
+    head over Mixed_5d / Mixed_6e / Mixed_7c (35², 17², 8²), 6 priors a
+    cell from ``cli.priors --mode multiscale`` (P = 9,468), batch 32, G =
+    16, dense matching at 0.5, center/log-scale encoding, bf16 backbone,
+    f32 head. Train with use_pallas=True (greedy matching on B4's global
+    scratch route), overfit one batch, detect as shipped (B1 at P =
+    9,468), the same model at 20 classes (train, then the per-class sweep
+    into B1 at P = 1,024), and ``cli.train.main`` as shipped for 2 steps.
+    Returns the launch counts of the phase and its kernel rows."""
+    from multibox_tpu_torch.cli import priors as cli_priors
+    from multibox_tpu_torch.cli import train as cli_train
+    from multibox_tpu_torch.config import parse_config_file
+    from multibox_tpu_torch.priors import load_priors
+
+    root = os.path.join(".work", "chip_smoke_ssd")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    shipped = parse_config_file("configs/ssd_multiscale.yaml")
+    # 35 17 8 at 299 px, as the config's header says
+    sizes = [feature_grid(shipped.input_size, e) for e in shipped.ssd_endpoints]
+    priors_path = os.path.join(root, "priors_ms.pkl")
+    with quiet:
+        if cli_priors.main(["--output", priors_path, "--mode", "multiscale",
+                            "--feature_map_sizes", *map(str, sizes), "--aspect_ratios",
+                            "1.0", "2.0", "0.5", "3.0", "0.333"]):
+            raise AssertionError("priors CLI failed")
+    priors = load_priors(priors_path)
+    P = priors.shape[0]
+    if P != sum(n * n for n in sizes) * shipped.ssd_priors_per_cell:
+        raise AssertionError(f"multiscale priors: {P} for grids {sizes}")
+    B, G = shipped.batch_size, shipped.max_num_bboxes
+    cfg = dataclasses.replace(shipped, num_priors=P, use_pallas=True, log_every_steps=1)
+    model = inference.build_model(cfg, P, device=DEV)
+    state = train_state.create_train_state(cfg, model, SEED, P, device=DEV)
+    canvas = int(cfg.input_size * 1.15)
+    data = make_train_data(rng, train_steps + 1, cfg, canvas)
+    total, rows = {}, {}
+    out = {"phase": "ssd", "card": card_line,
+           "config": f"configs/ssd_multiscale.yaml (inception_v3 {cfg.input_size}, SSD head over "
+                     f"{list(cfg.ssd_endpoints)} ({sizes}), {cfg.ssd_priors_per_cell} priors a "
+                     f"cell, P={P}, "
+                     f"batch {B}, G={G}, multi_match_iou {cfg.multi_match_iou}, box_encoding "
+                     f"{cfg.box_encoding}, {cfg.compute_dtype} backbone, float32 head); train "
+                     "with use_pallas=True, detect and the CLI as shipped"}
+
+    _, boxes, num = augmented(cfg, state, data[0])
+    rows["match_ssd"] = match_at_step_boxes("ssd", boxes, num, dev(priors))
+    del boxes, num
+    logdir = os.path.join(root, "train")
+    stream = lambda start: iter(data[start:])  # noqa: E731
+    t0 = time.perf_counter()
+    s, counts = counted(lambda: train_loop.train_from_batches(
+        cfg, stream, priors, logdir, max_steps=train_steps, device=DEV),
+        {"match": train_steps}, "ssd train")
+    seconds = time.perf_counter() - t0
+    add_counts(total, counts)
+    logged = logged_losses(logdir, train_steps)
+    shutil.rmtree(logdir, ignore_errors=True)
+    del s
+    step_fn = train_loop.make_augmented_train_step(cfg, model, priors, device=DEV)
+    ms_step, _ = timed_steps(step_fn, state, data[:4])
+    overfit = overfit_one_batch(cfg, model, state, priors, data[0], overfit_steps)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    out.update({"train_launches": counts, "train_steps": train_steps,
+                "train_loop_seconds": seconds,
+                "train_loss_first_last": [logged[0]["loss"], logged[-1]["loss"]],
+                "train_num_pos_per_step": [r["num_pos"] for r in logged],
+                "ms_per_step": ms_step, "overfit_steps": overfit_steps,
+                "overfit_loss_first_last": [overfit[0], overfit[-1]]})
+
+    # detect as shipped: B1 is the only kernel
+    dcfg = dataclasses.replace(shipped, num_priors=P)
+    variables = make_variables(model, gen)
+    ddata = make_dataset(rng, batches=3, batch=B, valid_last=B)
+    fns = inference.make_detect_loop_fns(dcfg, priors, device=DEV)
+    inference.run_detect_loop(dcfg, variables, ddata[:1], priors, fns=fns, device=DEV)
+    t0 = time.perf_counter()
+    with nms_inputs_seen() as seen:
+        results, counts = counted(lambda: inference.run_detect_loop(
+            dcfg, variables, ddata, priors, fns=fns, device=DEV), {"nms": len(ddata)},
+            "ssd detect")
+    seconds = time.perf_counter() - t0
+    add_counts(total, counts)
+    check_results(results, B * len(ddata), dcfg.max_detections)
+    rows["nms_ssd"] = nms_at_path_inputs("ssd", seen)
+    out.update({"detect_launches": counts, "detect_batches": len(ddata),
+                "detect_ms_per_batch": seconds * 1e3 / len(ddata),
+                "detect_images_per_s": B * len(ddata) / seconds,
+                "detections_per_image": float(np.mean([len(r["scores"]) for r in results]))})
+    del variables, fns, model
+    torch.cuda.empty_cache()
+
+    # multi-class: 20 classes, 2 train steps, one detect batch
+    C = 20
+    mcfg = dataclasses.replace(cfg, num_classes=C)
+    mmodel = inference.build_model(mcfg, P, device=DEV)
+    mstate = train_state.create_train_state(mcfg, mmodel, SEED, P, device=DEV)
+    mdata = make_train_data(rng, 2, mcfg, canvas)
+    for b in mdata:
+        b["labels"] = rng.integers(0, C, (B, G)).astype(np.int32)
+    mstep = train_loop.make_augmented_train_step(mcfg, mmodel, priors, device=DEV)
+
+    def two_steps():
+        st, losses = mstate, []
+        for b in mdata:
+            st, m = mstep(st, b)
+            losses.append(float(m["loss"]))
+            if m["num_bad_labels"] != 0:
+                raise AssertionError("multi-class labels out of range")
+        return losses
+
+    mlosses, counts = counted(two_steps, {"match": len(mdata)}, "ssd multi-class train")
+    add_counts(total, counts)
+    if not all(math.isfinite(x) for x in mlosses):
+        raise AssertionError(f"multi-class loss {mlosses}")
+    del mstate, mstep
+    mdcfg = dataclasses.replace(dcfg, num_classes=C)
+    mvars = make_variables(mmodel, gen)
+    mfns = inference.make_detect_loop_fns(mdcfg, priors, device=DEV)
+    one = make_dataset(rng, batches=1, batch=B, valid_last=B)
+    with nms_inputs_seen() as seen:
+        mresults, counts = counted(lambda: inference.run_detect_loop(
+            mdcfg, mvars, one, priors, fns=mfns, device=DEV), {"nms": 1}, "ssd multi-class detect")
+    add_counts(total, counts)
+    check_results(mresults, B, mdcfg.max_detections)
+    if seen[0][0].shape[1] != mdcfg.detect_candidates:
+        raise AssertionError(f"per-class sweep gave {tuple(seen[0][0].shape)}")
+    rows["nms_ssd_multiclass"] = nms_at_path_inputs("ssd_multiclass", seen)
+    classes = sorted({int(c) for r in mresults for c in r["classes"]})
+    out.update({"multiclass": {"classes": C, "train_losses": mlosses, "train_launches": counts,
+                               "detect_candidates": mdcfg.detect_candidates,
+                               "classes_detected": len(classes)}})
+    del mvars, mfns, mmodel
+    torch.cuda.empty_cache()
+
+    # the user's command: configs/ssd_multiscale.yaml as shipped (B4 off)
+    cli_logdir = os.path.join(root, "cli_train")
+    args = ["--tfrecords", records, "--priors", priors_path, "--logdir", cli_logdir,
+            "--config", "configs/ssd_multiscale.yaml", "--max_number_of_steps", "2"]
+    t0 = time.perf_counter()
+    with quiet:
+        rc, counts = counted(lambda: cli_train.main(args), {}, "ssd train CLI")
+    if rc or CheckpointManager(cli_logdir).latest_step() != 2:
+        raise AssertionError(f"ssd train CLI: rc {rc}")
+    logged = logged_losses(cli_logdir, 2)
+    out.update({"cli_train_seconds": time.perf_counter() - t0, "cli_train_launches": counts,
+                "cli_train_loss": logged[-1]["loss"]})
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(records), ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update({"ok": True, "launches": total, "kernels": rows})
+    emit(out)
+    return total, rows
+
+
+def phase_mobilenet(rng, gen, card_line, train_steps=6):
+    """configs/mobilenet_edge.yaml at full width: MobileNetV2 1.0 at 224,
+    the MultiBox head over Final (7² × 1,280), P = 128 seeded priors,
+    batch 64, K = 20, bf16 backbone, f32 head. Detect as shipped (B1) and
+    with use_pallas=True (B1, B2 on the head, B3a), the head and the
+    postprocess against the plain path, the BN-folded model (γ folded)
+    against the unfolded one, then training with use_pallas=True (B2
+    forward and backward, B3b, B4 at P = 128). Returns the launch counts
+    of the phase and its kernel rows."""
+    from multibox_tpu_torch.config import parse_config_file
+
+    shipped = parse_config_file("configs/mobilenet_edge.yaml")
+    P, B = shipped.num_priors, shipped.batch_size
+    priors = np.sort(rng.uniform(0.05, 0.95, (P, 2, 2)).astype(np.float32), axis=1).reshape(P, 4)
+    kcfg = dataclasses.replace(shipped, use_pallas=True)
+    model = inference.build_model(shipped, P, device=DEV)
+    kmodel = inference.build_model(kcfg, P, device=DEV)
+    variables = make_variables(model, gen)
+    data = make_dataset(rng, batches=3, batch=B, valid_last=B * 3 // 4, canvas=256)
+    images = sum(int(b["batch_valid"]) for b in data)
+    total, rows = {}, {}
+    out = {"phase": "mobilenet", "card": card_line,
+           "config": f"configs/mobilenet_edge.yaml (mobilenet_v2 width {shipped.mobilenet_width} "
+                     f"at {shipped.input_size}, MultiBox head over Final, P={P}, batch {B}, "
+                     f"K={shipped.max_detections}, bn_momentum {shipped.bn_momentum}, "
+                     f"{shipped.compute_dtype} backbone, float32 head)"}
+    out.update(head_against_plain(kcfg, kmodel, variables, priors, data[0]["images"]))
+
+    per_batch = {}
+    for tag, c, want in (("shipped", shipped, {"nms": 1}),
+                         ("use_pallas", kcfg, {"nms": 1, "fused_matmul": 3, "box_decode": 1})):
+        fns = inference.make_detect_loop_fns(c, priors, device=DEV)
+        inference.run_detect_loop(c, variables, data[:1], priors, fns=fns, device=DEV)
+        t0 = time.perf_counter()
+        with nms_inputs_seen() as seen:
+            results, counts = counted(lambda: inference.run_detect_loop(
+                c, variables, data, priors, fns=fns, device=DEV),
+                {k: v * len(data) for k, v in want.items()}, f"mobilenet detect ({tag})")
+        per_batch[tag] = (time.perf_counter() - t0) * 1e3 / len(data)
+        add_counts(total, counts)
+        check_results(results, images, c.max_detections)
+    rows["nms_mobilenet"] = nms_at_path_inputs("mobilenet", seen)
+    out.update({"detect_batches": len(data), "detect_ms_per_batch": per_batch,
+                "detect_images_per_s": {k: B / (v / 1e3) for k, v in per_batch.items()}})
+
+    # BatchNorm (with γ) folded into the convolutions, against the unfolded
+    # model: in float32 within 1e-3 of the largest output (the same
+    # products in another order); in bfloat16, as shipped, the gap is
+    # rounding moved through 52 units and is reported, not held
+    folded_vars = fold_batch_norms(variables)
+    scales = sum(1 for k in variables["params"] if k.endswith("BatchNorm.scale"))
+    if any("BatchNorm" in k for k in folded_vars["params"]) or scales != 52:
+        raise AssertionError(f"fold: {scales} γ, a BatchNorm leaf left "
+                             f"{any('BatchNorm' in k for k in folded_vars['params'])}")
+    fold = {}
+    x = preprocess_eval(dev(data[0]["images"]), shipped.input_size)
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(shipped, compute_dtype=dtype)
+        folded_model = inference.build_model(c, P, folded=True, device=DEV)
+        with torch.no_grad():
+            loc_f, conf_f = detector_mod.apply(folded_model, folded_vars, x)
+            loc_u, conf_u = detector_mod.apply(inference.build_model(c, P, device=DEV),
+                                               variables, x)
+        if not (torch.isfinite(loc_f).all() and torch.isfinite(conf_f).all()):
+            raise AssertionError(f"non-finite output of the folded model ({dtype})")
+        fold[dtype] = {"max_abs_err_vs_unfolded": max(float((loc_f - loc_u).abs().max()),
+                                                      float((conf_f - conf_u).abs().max())),
+                       "output_abs_max": max(float(loc_u.abs().max()),
+                                             float(conf_u.abs().max()))}
+    if fold["float32"]["max_abs_err_vs_unfolded"] > 1e-3 * fold["float32"]["output_abs_max"]:
+        raise AssertionError(f"folded vs unfolded (float32): {fold['float32']}")
+    out.update({"folded_bn_with_scale": scales, "folded_vs_unfolded": fold})
+    del variables, folded_vars, folded_model
+    torch.cuda.empty_cache()
+
+    # training through B2 forward and backward, B3b, B4 (shared route)
+    tcfg = dataclasses.replace(kcfg, log_every_steps=1)
+    state = train_state.create_train_state(tcfg, kmodel, SEED, P, device=DEV)
+    tdata = make_train_data(rng, train_steps + 1, tcfg, int(tcfg.input_size * 1.15))
+    out.update(train_stage_checks(tcfg, kmodel, state, priors, tdata[0]))
+    rows["match_mobilenet"] = out["b4_on_step_boxes"]
+    logdir = os.path.join(".work", "chip_smoke_mobilenet")
+    shutil.rmtree(logdir, ignore_errors=True)
+    stream = lambda start: iter(tdata[start:])  # noqa: E731
+    n = train_steps
+    t0 = time.perf_counter()
+    _, counts = counted(lambda: train_loop.train_from_batches(
+        tcfg, stream, priors, logdir, max_steps=n, device=DEV),
+        {"match": n, "fused_matmul": 3 * n, "fused_matmul_backward": 3 * n, "box_encode": n},
+        "mobilenet train")
+    seconds = time.perf_counter() - t0
+    add_counts(total, counts)
+    logged = logged_losses(logdir, n)
+    shutil.rmtree(logdir, ignore_errors=True)
+    step_fn = train_loop.make_augmented_train_step(tcfg, kmodel, priors, device=DEV)
+    out.update({"train_launches": counts, "train_steps": n, "train_loop_seconds": seconds,
+                "train_loss_first_last": [logged[0]["loss"], logged[-1]["loss"]],
+                "ms_per_step": timed_steps(step_fn, state, tdata[:4])[0]})
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # B2 at the head's three layers (M, K, N as the path gives them), forward
+    # and backward: 3,136×1,280×96, 64×4,704×512, 64×4,704×128
+    g = mobilenet.feature_grid(shipped.input_size)
+    flat = g * g * shipped.bottleneck_features
+    head = (("Bottleneck", B * g * g, kmodel.backbone.endpoint_features["Final"],
+             shipped.bottleneck_features, True),
+            ("Locations", B, flat, P * 4, False),
+            ("Confidences", B, flat, P * shipped.num_classes, False))
+    rows["fused_matmul_mobilenet"] = [forward_entry(rng, name, M, Kd, N, relu, torch.float32)
+                                      for name, M, Kd, N, relu in head]
+    rows["fused_matmul_backward_mobilenet"] = [backward_entry(rng, *shape) for shape in head]
+    for entry in rows["fused_matmul_mobilenet"]:
+        if entry["name"] in ("Locations", "Confidences") and entry["route"] != "skinny":
+            raise AssertionError(f"mobilenet {entry['name']} took route {entry['route']}")
+    out.update({"ok": True, "launches": total, "kernels": rows})
+    emit(out)
+    return total, rows
 
 
 def main() -> int:
@@ -1394,14 +1828,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts = phase_train(rng, card_line, args.profile)
     torch.cuda.empty_cache()
-    cli_counts = phase_cli(rng, card_line)
+    cli_counts, records = phase_cli(rng, card_line)
+    torch.cuda.empty_cache()
+    ssd_counts, ssd_rows = phase_ssd(rng, gen, card_line, records)
+    mobilenet_counts, mobilenet_rows = phase_mobilenet(rng, gen, card_line)
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the three paths: detect (B1, B2, B3a), train (B2, B3b, B4)
-    # and cli (B1)
+    # launches on the five paths: detect (B1, B2, B3a), train (B2, B3b, B4),
+    # cli (B1), ssd (B1, B4) and mobilenet (B1, B2, B3a, B3b, B4)
+    paths = (counts, train_counts, cli_counts, ssd_counts, mobilenet_counts)
     for e in entries + [backward]:
-        e["launches"] = counts[e["name"]] + train_counts[e["name"]] + cli_counts[e["name"]]
+        e["launches"] = sum(c.get(e["name"], 0) for c in paths)
+    # the new paths' shapes beside each kernel's main row
+    by_name = {e["name"]: e for e in entries + [backward]}
+    by_name["nms"].update(ssd_p9468_b32=ssd_rows["nms_ssd"],
+                          ssd_multiclass_p1024=ssd_rows["nms_ssd_multiclass"],
+                          mobilenet_p128_b64=mobilenet_rows["nms_mobilenet"])
+    by_name["match"].update(ssd_global_scratch=ssd_rows["match_ssd"],
+                            mobilenet_p128=mobilenet_rows["match_mobilenet"])
+    by_name["fused_matmul"]["mobilenet_head"] = mobilenet_rows["fused_matmul_mobilenet"]
+    backward["mobilenet_head"] = mobilenet_rows["fused_matmul_backward_mobilenet"]
     on_path = {"nms", "fused_matmul", "box_decode", "box_encode", "match"}
     for e in entries:
         if e["name"] in on_path and e["launches"] < 1:

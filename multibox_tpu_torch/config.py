@@ -2,10 +2,9 @@
 
 Own copy of the ``Config`` surface of the JAX package, field for field, so
 the same YAML files load unchanged (snake_case keys and the original
-UPPER_CASE keys). Fields that belong to parts not ported yet (SSD,
-MobileNet, int8, multi-device) are kept so that a config file round-trips;
-the code that reads them raises ``NotImplementedError`` until its slice
-lands.
+UPPER_CASE keys). Fields that belong to parts not ported yet (int8,
+multi-device) are kept so that a config file round-trips; the code that
+reads them raises ``NotImplementedError`` until its slice lands.
 Unknown keys warn instead of failing so older configs load.
 """
 

@@ -56,12 +56,15 @@ def build_model(
         quantize=quantize,
         use_pallas=cfg.use_pallas,
         backbone=cfg.backbone,
+        mobilenet_width=cfg.mobilenet_width,
         head_type=cfg.head_type,
         num_classes=cfg.num_classes,
         compute_dtype=torch.bfloat16
         if cfg.compute_dtype == "bfloat16"
         else torch.float32,
         bottleneck_features=cfg.bottleneck_features,
+        ssd_endpoints=tuple(cfg.ssd_endpoints),
+        ssd_priors_per_cell=cfg.ssd_priors_per_cell,
         bn_momentum=cfg.bn_momentum,
         device=resolve_device(device),
     )

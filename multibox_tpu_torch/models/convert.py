@@ -10,11 +10,14 @@ Rules, leaf by leaf (the tree is walked by tuple keys — module names such
 as ``Branch_0/Conv2d_0a_1x1`` contain ``/``, so joining on ``/`` and
 splitting again would corrupt them):
 
-* ``kernel`` of rank 4 (HWIO) → ``weight`` (OIHW);
+* ``kernel`` of rank 4 (HWIO) → ``weight`` (OIHW); a grouped
+  (depthwise) kernel ``[kh, kw, in / groups, out]`` becomes
+  ``[out, in / groups, kh, kw]`` under the same transpose;
 * ``kernel`` of rank 2 (``[in, out]``) → ``kernel`` unchanged;
-* ``bias``, ``mean``, ``var`` → same name, same values;
-* BatchNorm has ``bias``, ``mean``, ``var`` and no ``scale`` (slim
-  convention, eps 1e-3); a ``scale`` leaf is refused.
+* ``bias``, ``mean``, ``var``, ``scale`` of rank 1 → same name, same
+  values (Inception's BatchNorm has no ``scale``, slim's convention;
+  MobileNetV2's learns one);
+* anything else is refused.
 
 The ``ema`` tree has the shape of ``params`` and converts the same way.
 """
@@ -48,7 +51,7 @@ def _convert_collection(tree: Mapping, device) -> Dict[str, torch.Tensor]:
             name, arr = "weight", np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
         elif name == "kernel" and arr.ndim == 2:
             pass
-        elif name in ("bias", "mean", "var") and arr.ndim == 1:
+        elif name in ("bias", "mean", "var", "scale") and arr.ndim == 1:
             pass
         else:
             raise ValueError(

@@ -1,4 +1,5 @@
-"""Full detector: Inception-v3 backbone + MultiBox head.
+"""Full detector: Inception-v3 or MobileNetV2 backbone + MultiBox or SSD
+head.
 
 The public model surface — ``(variables, images) → (locations,
 confidences)`` — as one ``nn.Module`` whose weights are passed per call.
@@ -15,32 +16,38 @@ such set with ``torch.func.functional_call``; choosing ``ema`` over
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from multibox_tpu_torch.device import resolve_device
-from multibox_tpu_torch.models.heads import MultiBoxHead
-from multibox_tpu_torch.models.inception_v3 import (
-    InceptionV3,
-    SlimBatchNorm,
-    feature_grid,
-)
+from multibox_tpu_torch.models import inception_v3, mobilenet
+from multibox_tpu_torch.models.heads import MultiBoxHead, SSDHead
+from multibox_tpu_torch.models.inception_v3 import InceptionV3, SlimBatchNorm
+from multibox_tpu_torch.models.mobilenet import MobileNetV2
 
 Variables = Dict[str, Dict[str, torch.Tensor]]
 
+_INCEPTION_SSD_ENDPOINTS = ("Mixed_5d", "Mixed_6e", "Mixed_7c")
+
 
 class MultiBoxDetector(nn.Module):
-    """Inception-v3 + MultiBox head → ``(locations, confidences)``.
+    """Backbone + detection head → ``(locations, confidences)``.
 
     Args:
       num_priors: P (must equal the loaded priors' row count).
       input_size: side of the square model input; fixes the width of the
-        head's fully-connected layers.
-      head_type: ``"multibox"`` (FC head over Mixed_7c). ``"ssd"`` is not
-        ported yet.
+        MultiBox head's fully-connected layers.
+      backbone: ``"inception_v3"`` or ``"mobilenet_v2"`` (width
+        ``mobilenet_width``).
+      head_type: ``"multibox"`` (FC head over the final endpoint, the
+        reference's design) or ``"ssd"`` (multi-scale conv heads over
+        ``ssd_endpoints``, ``ssd_priors_per_cell`` priors a cell; the
+        priors must come from ``generate_priors_multiscale`` with matching
+        feature-map sizes). Inception's default ``ssd_endpoints`` on the
+        MobileNet backbone map to its stride-8/16/32 pyramid.
       num_classes: 1 for class-agnostic detection (reference behavior).
       compute_dtype: bfloat16 by default; params stay f32.
       bn_momentum: momentum of the BatchNorm running statistics in training
@@ -58,48 +65,88 @@ class MultiBoxDetector(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  folded: bool = False, use_pallas: Optional[bool] = None,
                  quantize: Optional[str] = None, bottleneck_features: int = 96,
-                 bn_momentum: float = 0.9997, device=None):
+                 bn_momentum: float = 0.9997, mobilenet_width: float = 1.0,
+                 ssd_endpoints: Sequence[str] = _INCEPTION_SSD_ENDPOINTS,
+                 ssd_priors_per_cell: int = 6, device=None):
         super().__init__()
-        if backbone == "mobilenet_v2":
-            raise NotImplementedError("the MobileNetV2 backbone is not ported yet")
-        if backbone != "inception_v3":
+        if backbone == "inception_v3":
+            net = InceptionV3(compute_dtype=compute_dtype, folded=folded,
+                              use_pallas=use_pallas, quantize=quantize,
+                              bn_momentum=bn_momentum)
+            final_endpoint, grid = "Mixed_7c", inception_v3.feature_grid
+            self.backbone_scope = "InceptionV3"
+        elif backbone == "mobilenet_v2":
+            net = MobileNetV2(width=mobilenet_width, compute_dtype=compute_dtype,
+                              bn_momentum=bn_momentum, folded=folded,
+                              quantize=quantize)
+            final_endpoint, grid = "Final", mobilenet.feature_grid
+            self.backbone_scope = "MobileNetV2"
+        else:
             raise ValueError(f"unknown backbone: {backbone}")
-        if head_type == "ssd":
-            raise NotImplementedError("the SSD head is not ported yet")
-        if head_type != "multibox":
+        if head_type == "multibox":
+            head = MultiBoxHead(
+                num_priors=num_priors,
+                in_features=net.endpoint_features[final_endpoint],
+                grid=grid(input_size, final_endpoint),
+                num_classes=num_classes,
+                bottleneck_features=bottleneck_features,
+                endpoint=final_endpoint,
+                use_pallas=use_pallas,
+            )
+            self.head_scope = "MultiBoxHead"
+        elif head_type == "ssd":
+            ssd_endpoints = tuple(ssd_endpoints)
+            missing = [e for e in ssd_endpoints if e not in net.endpoint_features]
+            if missing:
+                if backbone == "mobilenet_v2" and ssd_endpoints == _INCEPTION_SSD_ENDPOINTS:
+                    # Inception defaults on the mobilenet backbone: map to
+                    # the equivalent stride-8/16/32 pyramid automatically.
+                    ssd_endpoints = ("Stage_2", "Stage_4", "Stage_6")
+                else:
+                    raise ValueError(
+                        f"ssd_endpoints {missing} not produced by backbone "
+                        f"{backbone!r}; available: {sorted(net.endpoint_features)}")
+            head = SSDHead(net.endpoint_features, endpoints_spec=ssd_endpoints,
+                           priors_per_cell=ssd_priors_per_cell,
+                           num_classes=num_classes)
+            self.head_scope = "SSDHead"
+        else:
             raise ValueError(f"unknown head_type: {head_type}")
         self.num_priors = num_priors
         self.input_size = input_size
         self.folded = folded
         self.device = resolve_device(device)
-        self.InceptionV3 = InceptionV3(
-            compute_dtype=compute_dtype, folded=folded, use_pallas=use_pallas,
-            quantize=quantize, bn_momentum=bn_momentum)
-        self.MultiBoxHead = MultiBoxHead(
-            num_priors=num_priors,
-            in_features=self.InceptionV3.out_features,
-            grid=feature_grid(input_size, "Mixed_7c"),
-            num_classes=num_classes,
-            bottleneck_features=bottleneck_features,
-            endpoint="Mixed_7c",
-            use_pallas=use_pallas,
-        )
+        self.add_module(self.backbone_scope, net)
+        self.add_module(self.head_scope, head)
+
+    @property
+    def backbone(self) -> nn.Module:
+        return self._modules[self.backbone_scope]
+
+    @property
+    def head(self) -> nn.Module:
+        return self._modules[self.head_scope]
 
     def forward(self, images: torch.Tensor, train: bool = False):
         if images.shape[1] != self.input_size or images.shape[2] != self.input_size:
             raise ValueError(
                 f"model built for {self.input_size}×{self.input_size} input, "
                 f"got {tuple(images.shape)}")
-        endpoints = self.InceptionV3(images, train=train)
-        loc, conf = self.MultiBoxHead(endpoints, train=train)
+        endpoints = self.backbone(images, train=train)
+        loc, conf = self.head(endpoints, train=train)
+        if loc.shape[1] != self.num_priors:
+            raise ValueError(
+                f"head produced {loc.shape[1]} priors but num_priors="
+                f"{self.num_priors}; for head_type='ssd' the priors file must "
+                "be generated with matching feature_map_sizes/priors_per_cell")
         return loc, conf
 
     def init_variables(self, generator: torch.Generator) -> Variables:
         """Random variables for this module, drawn from ``generator`` (a CPU
         or CUDA ``torch.Generator``) and placed on ``self.device``: He-normal
-        convolutions, LeCun-normal head, zero biases, BatchNorm mean 0 and
-        variance 1. For smoke runs and tests; trained weights come through
-        ``models.convert``."""
+        backbone convolutions, LeCun-normal head, zero biases, BatchNorm γ 1,
+        mean 0 and variance 1. For smoke runs and tests; trained weights
+        come through ``models.convert``."""
         dev = self.device
         params, stats = {}, {}
         for name, p in self.named_parameters():
@@ -107,9 +154,12 @@ class MultiBoxDetector(nn.Module):
             if name.endswith("bias"):
                 params[name] = torch.zeros(shape, device=dev)
                 continue
-            if p.dim() == 4:  # OIHW
+            if name.endswith("BatchNorm.scale"):
+                params[name] = torch.ones(shape, device=dev)
+                continue
+            if p.dim() == 4:  # OIHW, [out, in / groups, kh, kw]
                 fan_in = shape[1] * shape[2] * shape[3]
-                gain = 2.0 if name.startswith("InceptionV3.") else 1.0
+                gain = 2.0 if name.startswith(self.backbone_scope + ".") else 1.0
             else:  # dense kernel [in, out]
                 fan_in, gain = shape[0], 1.0
             w = torch.randn(shape, generator=generator, device=generator.device)

@@ -1,22 +1,31 @@
-"""MultiBox detection head.
+"""MultiBox detection heads.
 
-:class:`MultiBoxHead` — the DeepMultiBox head (Erhan et al., CVPR'14;
-Szegedy et al., arXiv:1412.1441): from the final feature map, a 1×1-conv
-bottleneck + fully-connected layers emit ``locations [B, P, 4]`` (linear,
-residual offsets w.r.t. the P clustered priors) and ``confidences [B, P]``
-(logits). P is the number of *clustered* priors — predictions are tied to
-priors by index, not by spatial cell.
+Two head families, as in the JAX package:
 
-The SSD multi-scale head of the JAX package is not ported yet.
+* :class:`MultiBoxHead` — the DeepMultiBox head (Erhan et al., CVPR'14;
+  Szegedy et al., arXiv:1412.1441): from the final feature map, a 1×1-conv
+  bottleneck + fully-connected layers emit ``locations [B, P, 4]``
+  (linear, residual offsets w.r.t. the P clustered priors) and
+  ``confidences [B, P]`` (logits). P is the number of *clustered* priors —
+  predictions are tied to priors by index, not by spatial cell.
+* :class:`SSDHead` — per-endpoint 3×3 conv heads over several feature-map
+  resolutions (Liu et al., arXiv:1512.02325). Priors must be grid priors
+  from ``priors.generate_priors_multiscale`` with matching feature-map
+  sizes and priors-per-cell; output ordering is level → row → col →
+  shape, identical to the prior generator's.
+
+Both emit ``(locations [B, P, 4], confidences [B, P] or [B, P, C])``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from multibox_tpu_torch.models.inception_v3 import _Conv
 from multibox_tpu_torch.models.layers import FusedConv1x1, FusedDense
 
 
@@ -66,4 +75,45 @@ class MultiBoxHead(nn.Module):
             conf = conf.reshape(B, self.num_priors)
         else:
             conf = conf.reshape(B, self.num_priors, self.num_classes)
+        return loc, conf
+
+
+class SSDHead(nn.Module):
+    """Multi-scale conv head: one (loc, conf) 3×3 SAME conv pair per
+    endpoint, named ``Loc_<endpoint>`` / ``Conf_<endpoint>``, in float32
+    over the (bf16) backbone features. ``in_features`` maps each endpoint
+    to its channel count. Convolutions run on cuDNN, as the JAX package's
+    ``nn.Conv`` do (no Pallas kernel there)."""
+
+    def __init__(self, in_features: Mapping[str, int],
+                 endpoints_spec: Sequence[str] = ("Mixed_5d", "Mixed_6e", "Mixed_7c"),
+                 priors_per_cell: int = 6, num_classes: int = 1):
+        super().__init__()
+        self.endpoints_spec = tuple(endpoints_spec)
+        self.priors_per_cell = priors_per_cell
+        self.num_classes = num_classes
+        K, C = priors_per_cell, num_classes
+        for name in self.endpoints_spec:
+            self.add_module(f"Loc_{name}", _Conv(in_features[name], K * 4, (3, 3), True))
+            self.add_module(f"Conf_{name}", _Conv(in_features[name], K * C, (3, 3), True))
+
+    def forward(self, endpoints: Dict[str, torch.Tensor], train: bool = False):
+        locs, confs = [], []
+        K, C = self.priors_per_cell, self.num_classes
+        for name in self.endpoints_spec:
+            # f32 head over bf16 backbone features (see MultiBoxHead);
+            # NHWC → logical NCHW over the same bytes
+            x = endpoints[name].to(torch.float32).permute(0, 3, 1, 2)
+            B, _, H, W = x.shape
+            out = []
+            for conv in (self._modules[f"Loc_{name}"], self._modules[f"Conf_{name}"]):
+                y = F.conv2d(x, conv.weight, conv.bias, 1, 1)  # 3×3 SAME
+                # back to NHWC: the flatten is row → col → (shape, coord)
+                out.append(y.permute(0, 2, 3, 1))
+            locs.append(out[0].reshape(B, H * W * K, 4))
+            confs.append(out[1].reshape(B, H * W * K, C))
+        loc = torch.cat(locs, dim=1)
+        conf = torch.cat(confs, dim=1)
+        if C == 1:
+            conf = conf.squeeze(-1)
         return loc, conf

@@ -16,7 +16,10 @@ Choices made here:
 - Separate ``compute_dtype`` (bfloat16 by default) from the parameter
   dtype (float32). Weights are cast where they are used.
 - BatchNorm follows slim's conventions (eps 1e-3, no scale γ); statistics
-  and bias stay float32.
+  and bias stay float32. :class:`SlimBatchNorm` takes an optional γ for
+  the MobileNetV2 backbone (``models.mobilenet``), which shares it.
+- SAME padding is TensorFlow's at every stride (:func:`conv2d_same`): at
+  stride 2 on an even input it pads one pixel after and none before.
 - Parameters are created on the ``meta`` device: a module describes the
   computation and the names, and the weights are supplied per call
   (``torch.func.functional_call``), as the flax model takes its variables.
@@ -68,9 +71,11 @@ def _meta(*shape) -> nn.Parameter:
 
 
 class SlimBatchNorm(nn.Module):
-    """BatchNorm without γ: ``(x − μ)/√(σ² + 1e-3) + bias`` over the channel
-    axis of an NCHW tensor. ``bias`` is a parameter; ``mean`` and ``var``
-    are buffers (the ``batch_stats`` collection).
+    """BatchNorm ``(x − μ)·γ/√(σ² + 1e-3) + bias`` over the channel axis of
+    an NCHW tensor. slim's convention has no γ (``use_scale=False``, the
+    Inception units); MobileNetV2's units learn one (``use_scale=True``,
+    parameter ``scale``). ``bias`` and ``scale`` are parameters; ``mean``
+    and ``var`` are buffers (the ``batch_stats`` collection).
 
     Inference uses the running ``mean``/``var``. Training follows flax's
     ``BatchNorm``: the batch statistics are computed in float32 or wider
@@ -79,9 +84,14 @@ class SlimBatchNorm(nn.Module):
     statistics become ``m·running + (1 − m)·batch`` with ``m = momentum``
     (0.9997, slim's), left in :attr:`updated` for the caller to collect."""
 
-    def __init__(self, features: int, momentum: float = 0.9997):
+    def __init__(self, features: int, momentum: float = 0.9997,
+                 use_scale: bool = False):
         super().__init__()
         self.momentum = momentum
+        if use_scale:
+            self.scale = _meta(features)
+        else:
+            self.register_parameter("scale", None)
         self.bias = _meta(features)
         self.register_buffer("mean", torch.empty(features, device="meta"))
         self.register_buffer("var", torch.empty(features, device="meta"))
@@ -89,19 +99,46 @@ class SlimBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
-            return F.batch_norm(x, self.mean, self.var, None, self.bias,
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 False, 0.0, BN_EPS)
         # statistics in at least float32 (flax's promote_types(dtype, f32))
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         mean = x32.mean(dims)
         var = ((x32 * x32).mean(dims) - mean * mean).clamp_min(0.0)
-        y = (x32 - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+        mul = torch.rsqrt(var + BN_EPS)
+        if self.scale is not None:  # flax: mul *= scale, then y *= mul
+            mul = mul * self.scale
+        y = (x32 - mean[:, None, None]) * mul[:, None, None]
         y = y + self.bias[:, None, None]
         m = self.momentum
         self.updated = (m * self.mean + (1.0 - m) * mean.detach(),
                         m * self.var + (1.0 - m) * var.detach())
         return y.to(x.dtype)
+
+
+def same_padding(size: int, kernel: int, stride: int):
+    """TensorFlow's SAME padding along one axis, ``(before, after)``: the
+    output has ``ceil(size / stride)`` positions and the odd pixel of
+    padding goes after (flax and XLA pad this way)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias, strides,
+                groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with SAME padding at any stride. Symmetric padding goes
+    to the convolution; an asymmetric one (stride 2 on an even input) is an
+    explicit ``F.pad``, since ``nn.Conv2d(padding=1)`` would pad (1, 1) and
+    shift every output by one pixel."""
+    (top, bottom), (left, right) = (
+        same_padding(x.shape[2], weight.shape[2], strides[0]),
+        same_padding(x.shape[3], weight.shape[3], strides[1]))
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, strides, (top, left), groups=groups)
+    x = F.pad(x, (left, right, top, bottom))
+    return F.conv2d(x, weight, bias, strides, 0, groups=groups)
 
 
 class _Conv(nn.Module):
@@ -138,17 +175,11 @@ class ConvBN(nn.Module):
                 "quantize (int8 post-training quantization) is a later slice "
                 "of the port")
         kernel, strides = tuple(kernel), tuple(strides)
-        if padding == "SAME":
-            if strides != (1, 1):
-                raise ValueError("SAME padding is implemented for stride 1 only")
-            pad = (kernel[0] // 2, kernel[1] // 2)
-        elif padding == "VALID":
-            pad = (0, 0)
-        else:
+        if padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding: {padding!r}")
         self.features = features
         self.strides = strides
-        self.pad = pad
+        self.padding = padding
         self.compute_dtype = compute_dtype
         self.folded = folded
         self.fused = folded and kernel == (1, 1) and strides == (1, 1)
@@ -167,7 +198,10 @@ class ConvBN(nn.Module):
             # NCHW channels_last ↔ NHWC are views of the same bytes.
             return self.Conv(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         bias = self.Conv.bias.to(dt) if self.folded else None
-        x = F.conv2d(x, self.Conv.weight.to(dt), bias, self.strides, self.pad)
+        if self.padding == "SAME":
+            x = conv2d_same(x, self.Conv.weight.to(dt), bias, self.strides)
+        else:
+            x = F.conv2d(x, self.Conv.weight.to(dt), bias, self.strides)
         if not self.folded:
             x = self.BatchNorm(x, train)
         return torch.relu(x)
@@ -386,24 +420,28 @@ class InceptionV3(nn.Module):
         c = 3
         plan = []
 
-        def stem(name, features, kernel, **conv_kw):
+        features = {}  # endpoint → channels
+
+        def stem(name, n, kernel, **conv_kw):
             nonlocal c
-            plan.append((name, ConvBN(c, features, kernel, **conv_kw, **kw)))
-            c = features
+            plan.append((name, ConvBN(c, n, kernel, **conv_kw, **kw)))
+            c = features[name] = n
 
         def block(name, cls, *args):
             nonlocal c
             module = cls(c, *args, **kw)
             plan.append((name, module))
-            c = module.out_features
+            c = features[name] = module.out_features
 
         stem("Conv2d_1a_3x3", 32, (3, 3), strides=(2, 2), padding="VALID")
         stem("Conv2d_2a_3x3", 32, (3, 3), padding="VALID")
         stem("Conv2d_2b_3x3", 64, (3, 3))
         plan.append(("MaxPool_3a_3x3", None))
+        features["MaxPool_3a_3x3"] = c
         stem("Conv2d_3b_1x1", 80, (1, 1), padding="VALID")
         stem("Conv2d_4a_3x3", 192, (3, 3), padding="VALID")
         plan.append(("MaxPool_5a_3x3", None))
+        features["MaxPool_5a_3x3"] = c
         for name, pool_features in (("Mixed_5b", 32), ("Mixed_5c", 64),
                                     ("Mixed_5d", 64)):
             block(name, InceptionA, pool_features)
@@ -422,7 +460,8 @@ class InceptionV3(nn.Module):
                 self.add_module(name, module)
             if name == final_endpoint:
                 break
-        self.out_features = c
+        # channels of each endpoint this network produces
+        self.endpoint_features = {n: features[n] for n in self._order}
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
         # NHWC in → logical NCHW over the same bytes (channels_last).
@@ -489,30 +528,40 @@ def fold_batch_norms(variables):
     """Fold BN statistics into conv weights for the ``folded=True`` model.
 
     ``BN(conv(x)) = conv'(x) + b'`` with ``w' = w·s`` and ``b' = β − μ·s``
-    where ``s = 1/√(σ²+ε)`` (slim-style BN has no γ). ``variables`` holds
-    the flat ``params`` and ``batch_stats`` dictionaries of the unfolded
-    model; returns ``{"params": ...}`` for the folded variant (Conv has a
-    bias, no BatchNorm) — one normalization pass per conv unit eliminated
-    at inference.
+    where ``s = γ/√(σ²+ε)``: slim-style BN (the Inception units) has no γ
+    (γ ≡ 1), MobileNetV2's carries one, which is consumed into the weight
+    here and dropped. ``variables`` holds the flat ``params`` and
+    ``batch_stats`` dictionaries of the unfolded model; returns
+    ``{"params": ...}`` for the folded variant (Conv has a bias, no
+    BatchNorm) — one normalization pass per conv unit eliminated at
+    inference.
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+
+    def bn_scale(unit):
+        s = torch.rsqrt(stats[unit + ".BatchNorm.var"].to(torch.float32) + BN_EPS)
+        gamma = params.get(unit + ".BatchNorm.scale")
+        return s if gamma is None else s * gamma.to(torch.float32)
+
     out = {}
     for key, value in params.items():
         if key.endswith(".Conv.weight"):
             unit = key[: -len(".Conv.weight")]
-            var = stats.get(unit + ".BatchNorm.var")
-            if var is not None:
-                s = torch.rsqrt(var.to(torch.float32) + BN_EPS)
+            if unit + ".BatchNorm.var" in stats:
+                s = bn_scale(unit)
                 out[key] = (value.to(torch.float32) * s[:, None, None, None]).to(value.dtype)
                 continue
         if key.endswith(".BatchNorm.bias"):
             unit = key[: -len(".BatchNorm.bias")]
             mean = stats.get(unit + ".BatchNorm.mean")
             if mean is not None:
-                s = torch.rsqrt(stats[unit + ".BatchNorm.var"].to(torch.float32) + BN_EPS)
-                bias = value.to(torch.float32) - mean.to(torch.float32) * s
+                bias = value.to(torch.float32) - mean.to(torch.float32) * bn_scale(unit)
                 out[unit + ".Conv.bias"] = bias.to(value.dtype)
+                continue
+        if key.endswith(".BatchNorm.scale"):
+            # consumed into the weight above: the folded unit has no BatchNorm
+            if key[: -len(".scale")] + ".var" in stats:
                 continue
         out[key] = value
     return {"params": out}

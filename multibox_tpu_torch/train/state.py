@@ -369,7 +369,10 @@ def make_train_step(cfg: Config, model, priors, device=None):
             focal_alpha=cfg.focal_alpha,
         )
         keys = list(params)
-        grads = torch.autograd.grad(total, [params[k] for k in keys])
+        # a parameter off the loss's path (MobileNetV2's Head unit under the
+        # SSD head) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(total, [params[k] for k in keys],
+                                    allow_unused=True, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dict(zip(keys, grads)), new_stats, metrics
 

@@ -103,6 +103,8 @@ def CheckpointManager_restore():
         lambda: convert.flax_to_torch({"params": {}}),
         lambda: resolve_device("cuda"),
         lambda: MultiBoxDetector(num_priors=4, input_size=75),
+        lambda: MultiBoxDetector(num_priors=4, input_size=96, backbone="mobilenet_v2"),
+        lambda: MultiBoxDetector(num_priors=354, input_size=75, head_type="ssd"),
         lambda: create_train_state(Config(**SMALL), MultiBoxDetector(
             num_priors=4, input_size=75, device="cpu"), 0, 4),
         lambda: make_train_step(Config(**SMALL), None, PRIORS),
@@ -122,7 +124,7 @@ def CheckpointManager_restore():
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
          "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
-         "detector", "create_train_state", "make_train_step",
+         "detector", "detector_mobilenet", "detector_ssd", "create_train_state", "make_train_step",
          "make_augmented_train_step", "train", "checkpoint_restore", "train_from_batches",
          "evaluate_state", "generate_priors_kmeans", "run_detection", "cli_priors",
          "cli_train", "cli_detect", "cli_evaluate"],

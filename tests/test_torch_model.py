@@ -110,9 +110,18 @@ def test_convert_honours_ema_and_refuses_what_it_does_not_know(nets):
         tvars["ema"][key].numpy(), tvars["params"][key].numpy() * 0.5)
     with pytest.raises(ValueError, match="unknown variable collections"):
         convert.flax_to_torch({"params": {}, "opt_state": {}}, device="cpu")
+    # BatchNorm γ (MobileNetV2's) converts by name; a leaf of no known
+    # name or rank is refused
+    got = convert.flax_to_torch(
+        {"params": {"X": {"BatchNorm": {"scale": np.ones(3, np.float32)}}}}, device="cpu")
+    assert set(got["params"]) == {"X.BatchNorm.scale"}
     with pytest.raises(ValueError, match="no rule for leaf"):
         convert.flax_to_torch(
-            {"params": {"X": {"BatchNorm": {"scale": np.ones(3, np.float32)}}}},
+            {"params": {"X": {"BatchNorm": {"scale": np.ones((3, 3), np.float32)}}}},
+            device="cpu")
+    with pytest.raises(ValueError, match="no rule for leaf"):
+        convert.flax_to_torch(
+            {"params": {"X": {"Embed": {"embedding": np.ones((3, 3), np.float32)}}}},
             device="cpu")
 
 
@@ -160,10 +169,22 @@ def test_final_endpoint_cuts_the_network_short(nets):
 def test_unported_variants_say_so():
     with pytest.raises(NotImplementedError, match="int8"):
         inception_v3.InceptionV3(quantize="int8", folded=True)
-    with pytest.raises(NotImplementedError, match="SSD"):
-        detector.MultiBoxDetector(num_priors=4, head_type="ssd")
-    with pytest.raises(NotImplementedError, match="MobileNetV2"):
-        detector.MultiBoxDetector(num_priors=4, backbone="mobilenet_v2")
+    # the SSD head and the MobileNetV2 backbone are ported: both build and
+    # give the JAX package's output shapes (tests/test_torch_ssd.py and
+    # tests/test_torch_mobilenet.py hold their values to it)
+    ssd = detector.MultiBoxDetector(num_priors=59 * 6, input_size=SIZE, head_type="ssd",
+                                    compute_dtype=torch.float32, device="cpu")
+    mnet = detector.MultiBoxDetector(num_priors=4, input_size=96, backbone="mobilenet_v2",
+                                     compute_dtype=torch.float32, device="cpu")
+    for model, size, jkw in ((ssd, SIZE, dict(num_priors=59 * 6, head_type="ssd")),
+                             (mnet, 96, dict(num_priors=4, backbone="mobilenet_v2"))):
+        shapes = jax.eval_shape(
+            lambda x, m=JDetector(compute_dtype=jnp.float32, **jkw): m.init_with_output(
+                jax.random.PRNGKey(0), x)[0], jnp.zeros((2, size, size, 3)))
+        with torch.no_grad():
+            loc, conf = detector.apply(model, model.init_variables(torch.Generator()),
+                                       torch.zeros(2, size, size, 3))
+        assert (tuple(loc.shape), tuple(conf.shape)) == tuple(tuple(a.shape) for a in shapes)
     with pytest.raises(ValueError, match="unknown head_type"):
         detector.MultiBoxDetector(num_priors=4, head_type="nope")
     # train mode is ported now: batch statistics, and the running update
