@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``multibox_tpu_torch/csrc`` with ``nvcc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's two paths with random weights from a seed and checks that each
+port's paths with random weights from a seed and checks that each
 went through its kernels (launch counts, zeroed just before the path and
 read just after) and that what comes out is right, stage by stage:
 
@@ -50,7 +50,25 @@ read just after) and that what comes out is right, stage by stage:
   use_pallas=True for 6 steps (the matmul kernel forward and backward,
   encode, matching at P = 128), with the head's gradients and one step
   against the plain path; the head's three matmuls timed forward and
-  backward.
+  backward;
+- serve: the deployment path at configs/cub_detect.yaml's full width with
+  use_pallas: true, through the entry points a user calls: a checkpoint →
+  ``cli.export.main`` (``torch.export`` programs at batch sizes 1 and 32,
+  ``--fold_bn`` at 32, ``--quantize int8`` at 32 calibrated on
+  quant_calib_batches batches of tfrecords written from the seed) →
+  ``serving.load_exported`` → warmup; each program bitwise against the
+  live ``apply_and_postprocess`` on the same images, with the NMS, matmul
+  and decode kernels counted inside the programs' calls (the kernels are
+  ``multibox_torch::`` custom operators); ms a batch of 32 of each program
+  and of the live function, in turns; int8's scores against float32's;
+  each int8 convolution route exact against an int64 reference at a real
+  shape; the HTTP daemon (``serve.make_server``) in-process on 127.0.0.1
+  under 8 and 32 concurrent JPEG ``/detect`` clients and one
+  ``/detect_batch`` at the 40 ms and 2 ms batch windows (requests/s, p50,
+  p99, device batches; readings only), and one request alone equal to the
+  program called directly; then configs/ssd_multiscale.yaml with flip_tta:
+  true at batch 32 (2 × 9,468 = 18,936 boxes an image into the NMS kernel's
+  global-keys route, exact at the path's own inputs, timed).
 
 Every phase prints one JSON line; any failure raises and the process exits
 non-zero. Needs one CUDA device; without one it exits with code 2 and
@@ -78,7 +96,10 @@ exact at the inputs their paths gave them; the MobileNet head through
 the kernels against the plain head rtol 1e-4 / atol 1e-4 and its
 detections exact on the same logits; the folded MobileNet against the
 unfolded one in float32 within 1e-3 of the largest output (in bfloat16,
-as shipped, the gap is reported); launch counts exact per path.
+as shipped, the gap is reported); launch counts exact per path. Phase
+serve: the exported programs bitwise equal to the live function; the int8
+routes exactly the int64 reference; the NMS kernel exact at P = 18,936 and
+40,000 on its global-keys route (kernels phase and SSD with flip TTA).
 """
 
 from __future__ import annotations
@@ -316,10 +337,10 @@ def check_nms(rng):
     worst = 0.0
     for name, b, s, Kout, iou, thr in cases:
         worst = max(worst, nms_exact(name, dev(b), dev(s), Kout, iou, thr))
-    # a kept list that does not fit beside the sort keys is refused, not launched
+    # a kept list larger than shared memory by itself is refused, not launched
     try:
-        nms_kernel.nms_select(torch.zeros(1, 9468, 4, device=DEV),
-                              torch.zeros(1, 9468, device=DEV), 9468)
+        nms_kernel.nms_select(torch.zeros(1, 20000, 4, device=DEV),
+                              torch.zeros(1, 20000, device=DEV), 20000)
     except ValueError:
         pass
     else:
@@ -327,6 +348,18 @@ def check_nms(rng):
 
     by_name = {c[0]: c for c in cases}
     main = nms_entry(*by_name["main"], plain=True)
+    # the global-keys route: past 16,384 boxes, and a kept list that does not
+    # fit beside the keys
+    global_rows = {}
+    for name, B, P, Kout in (("global_p18936_b32", 32, 18936, 100),
+                             ("global_p40000_b4", 4, 40000, 200),
+                             ("global_p9468_k9468", 2, 9468, 9468)):
+        b, s = random_boxes(rng, (B, P)), rng.uniform(0, 1, (B, P)).astype(np.float32)
+        if nms_kernel.nms_route(P, Kout) != "global":
+            raise AssertionError(f"nms[{name}]: not on the global-keys route")
+        worst = max(worst, nms_exact(name, dev(b), dev(s), Kout, 0.5, 0.01))
+        if name != "global_p9468_k9468":
+            global_rows[name] = nms_entry(name, b, s, Kout, 0.5, 0.01, plain=True)
     return {
         "name": "nms", "route": "cuda",
         "source": "multibox_tpu_torch/csrc/nms.cu",
@@ -334,8 +367,9 @@ def check_nms(rng):
         "max_abs_err": worst, "library_ms": None,
         "tolerance": "indices, counts and scores exact", **main,
         "p1024": nms_entry(*by_name["p1024"], plain=True),
-        "p9468": nms_entry(*by_name["p9468"], plain=True),
-        "cases": [c[0] for c in cases],
+        "p9468": nms_entry(*by_name["p9468"], plain=True), **global_rows,
+        "cases": [c[0] for c in cases] + ["global_p18936_b32", "global_p40000_b4",
+                                           "global_p9468_k9468"],
     }
 
 
@@ -1793,6 +1827,386 @@ def phase_mobilenet(rng, gen, card_line, train_steps=6):
     return total, rows
 
 
+# --------------------------------------------------------------------------
+# the deployment path: export, the exported detector, the HTTP service, int8
+# --------------------------------------------------------------------------
+
+
+def equal_outputs(got, want, what):
+    """Every output of a detect program bitwise equal, dtype included."""
+    for key in ("boxes", "scores", "classes", "num"):
+        if got[key].dtype != want[key].dtype or not torch.equal(got[key].cpu(), want[key].cpu()):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def program_ms(call, x, reps=5):
+    """ms a call of one exported program (or live function) on ``x``,
+    outputs copied to the host, host clock, after one warm-up."""
+    def once():
+        with torch.no_grad():
+            out = call(x)
+        for v in out.values():
+            v.cpu()
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def int8_route_checks(rng):
+    """Each route of ``models.quant.int8_conv`` at one of its real shapes,
+    exact against an int64 reference (a float64 convolution of the same
+    integers: every sum is below 2**53), timed beside the bf16 cuDNN
+    convolution of the same shape (CUDA events, L2 evicted)."""
+    from multibox_tpu_torch.models import quant
+
+    shapes = (  # (unit, B, H, W, Cin, Cout, kernel, stride, padding, groups)
+        ("Mixed_5b/Branch_0/Conv2d_0a_1x1", 32, 35, 35, 192, 64, (1, 1), 1, "SAME", 1),
+        ("Mixed_6b/Branch_1/Conv2d_0b_1x7", 32, 17, 17, 128, 128, (1, 7), 1, "SAME", 1),
+        ("Mixed_7a/Branch_0/Conv2d_1a_3x3", 32, 17, 17, 192, 320, (3, 3), 2, "VALID", 1),
+        ("Conv2d_1a_3x3 (K = 27, padded to 32)", 32, 299, 299, 3, 32, (3, 3), 2, "VALID", 1),
+        ("MobileNetV2 Stage_2 Depthwise", 64, 28, 28, 192, 192, (3, 3), 1, "SAME", 192),
+    )
+    rows = []
+    for name, B, H, W, C, O, kernel, s, pad, groups in shapes:
+        x = dev(rng.integers(-127, 128, (B, C, H, W)).astype(np.int8)).contiguous(
+            memory_format=torch.channels_last)
+        w = dev(rng.integers(-127, 128, (O, C // groups) + kernel).astype(np.int8))
+        got = quant.int8_conv(x, w, (s, s), pad, groups)
+        ref = quant._conv_exact_float(x, w, (s, s), pad, groups, torch.float64)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got.to(torch.int64), ref.to(torch.int64)):
+            raise AssertionError(f"int8 conv [{name}] differs from the int64 reference")
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        rows.append({
+            "unit": name, "shape": f"B={B} {H}x{W}x{C} -> {O}, kernel {kernel}, stride {s}, "
+                                   f"groups {groups}",
+            "route": quant.int8_conv_route(kernel, (s, s), groups, C), "exact": True,
+            "ms": time_ms(lambda: quant.int8_conv(x, w, (s, s), pad, groups), reps=7, warmup=2),
+            "bf16_cudnn_ms": time_ms(lambda: quant._conv_exact_float(
+                xb, wb, (s, s), pad, groups, torch.bfloat16), reps=7, warmup=2)})
+    return rows
+
+
+def http_run(base, jpegs, clients, per_client):
+    """``clients`` threads, each with one keep-alive connection, each
+    sending ``per_client`` JPEG ``/detect`` requests back to back. Returns
+    requests/s over the run, p50 and p99 of the requests' latency (ms) and
+    the responses' status codes."""
+    import http.client
+    import threading
+    from urllib.parse import urlparse
+
+    host, port = urlparse(base).hostname, urlparse(base).port
+    lat, codes, bodies = [], [], []
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(i):
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        start.wait()
+        for r in range(per_client):
+            data = jpegs[(i * per_client + r) % len(jpegs)]
+            t0 = time.perf_counter()
+            conn.request("POST", "/detect?threshold=0.0", body=data,
+                         headers={"Content-Type": "image/jpeg"})
+            resp = conn.getresponse()
+            body = resp.read()
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt * 1e3)
+                codes.append(resp.status)
+                bodies.append(body)
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP client did not finish")
+    lat.sort()
+    return {"clients": clients, "requests": len(lat), "seconds": seconds,
+            "requests_per_s": len(lat) / seconds,
+            "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "codes": sorted(set(codes))}, bodies
+
+
+def http_phase(export_dir, rng, windows=(40.0, 2.0)):
+    """The daemon in-process on 127.0.0.1 over the batch-1/32 export: 8 and
+    32 concurrent JPEG ``/detect`` clients and one ``/detect_batch``, at
+    each window; ``/stats``' device batches; one request alone against the
+    exported program called directly (the same batch-1 program: equal)."""
+    import base64
+    import threading
+    import urllib.request
+
+    from multibox_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from multibox_tpu_torch.serve import make_server
+    from multibox_tpu_torch.serving import load_exported
+
+    srv = make_server(export_dir, port=0, batch_window_ms=windows[0])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    out = {"windows": {}}
+    try:
+        if not srv.service.ready.wait(600):
+            raise AssertionError("the daemon did not finish its warmup")
+        jpegs = [encode_jpeg(rng.integers(0, 256, (299, 299, 3), dtype=np.uint8))
+                 for _ in range(64)]
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return json.loads(r.read())
+
+        if get("/healthz")["status"] != "ok":
+            raise AssertionError("healthz is not ok after warmup")
+        for window in windows:
+            srv.service.batch_window_s = window / 1e3
+            row = {}
+            for clients, per_client in ((8, 12), (32, 6)):
+                before = get("/stats")
+                stats, bodies = http_run(base, jpegs, clients, per_client)
+                after = get("/stats")
+                if stats["codes"] != [200]:
+                    raise AssertionError(f"HTTP codes {stats['codes']}")
+                for body in bodies:
+                    res = json.loads(body)
+                    if not (np.isfinite(res["scores"]).all() and
+                            all(0.0 <= v <= 1.0 for b in res["boxes"] for v in b)):
+                        raise AssertionError("bad detection in a response")
+                stats["device_batches"] = after["device_batches"] - before["device_batches"]
+                stats["images_per_device_batch"] = (
+                    (after["images"] - before["images"]) / stats["device_batches"])
+                row[f"c{clients}"] = stats
+            payload = json.dumps({"images": [base64.b64encode(j).decode()
+                                             for j in jpegs[:32]]}).encode()
+            before = get("/stats")
+            t0 = time.perf_counter()
+            req = urllib.request.Request(base + "/detect_batch?threshold=0.0", data=payload)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                res = json.loads(r.read())
+            row["detect_batch_32_ms"] = (time.perf_counter() - t0) * 1e3
+            after = get("/stats")
+            row["detect_batch_device_batches"] = after["device_batches"] - before["device_batches"]
+            if len(res["results"]) != 32:
+                raise AssertionError("detect_batch answered the wrong count")
+            out["windows"][f"{window:g}ms"] = row
+        # one request alone: the batch-1 program, as called directly
+        srv.service.batch_window_s = windows[0] / 1e3
+        req = urllib.request.Request(base + "/detect?threshold=0.0", data=jpegs[0])
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+        img = decode_jpeg(jpegs[0], canvas=299)
+        direct = srv.service.detector((img.astype(np.float32) / 255.0 - 0.5)[None] * 2.0)
+        n = int(direct["num"][0])
+        if not np.array_equal(np.asarray(body["scores"], np.float32), direct["scores"][0, :n]):
+            raise AssertionError("the daemon's answer differs from the program called directly")
+        out["stats"] = get("/stats")
+    finally:
+        srv.shutdown()
+        srv.service.close()
+        srv.server_close()
+    return out
+
+
+def phase_serve(rng, gen, card_line):
+    """The deployment path at configs/cub_detect.yaml's full width with
+    use_pallas=True (Inception-v3 299, P = 256, batch 32, K = 10, bf16
+    backbone, f32 head), random weights from the seed, through the entry
+    points a user calls: a checkpoint → ``cli.export.main`` at batch sizes 1
+    and 32, ``--fold_bn`` at 32, ``--quantize int8`` at 32 (calibrated on
+    tfrecords written from the seed) → ``serving.load_exported`` on the card
+    → warmup → each program bitwise against the live
+    ``apply_and_postprocess`` on the same images, with B1, B2 and B3a
+    counted inside the programs' calls → the HTTP daemon
+    (``serve.make_server``) under 8 and 32 clients at the 40 ms and 2 ms
+    windows → int8's routes exact against int64. Then
+    configs/ssd_multiscale.yaml with flip_tta: true at batch 32 (B1 on its
+    global-keys route at 2 × 9,468 = 18,936 boxes an image, exact at the
+    path's own inputs). Returns the launch counts and the kernel rows."""
+    from multibox_tpu_torch.cli import export as cli_export
+    from multibox_tpu_torch.cli import priors as cli_priors
+    from multibox_tpu_torch.config import parse_config_file
+    from multibox_tpu_torch.priors import load_priors, save_priors
+    from multibox_tpu_torch.serving import load_exported
+    import yaml
+
+    root = os.path.join(".work", "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    cfg_path = os.path.join(root, "cub_detect_pallas.yaml")
+    with open("configs/cub_detect.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["use_pallas"] = True
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    cfg = parse_config_file(cfg_path)
+    P, B = cfg.num_priors, cfg.batch_size
+    priors = np.sort(rng.uniform(0.05, 0.95, (P, 2, 2)).astype(np.float32), axis=1).reshape(P, 4)
+    priors_path = os.path.join(root, "priors.pkl")
+    save_priors(priors, priors_path)
+    model = inference.build_model(cfg, P, device=DEV)
+    state = train_state.create_train_state(cfg, model, SEED, P, device=DEV,
+                                           variables=make_variables(model, gen))
+    logdir = os.path.join(root, "logdir")
+    CheckpointManager(logdir).save(1, state, force=True)
+    calib = os.path.join(root, "calib.tfrecord")
+    write_records(rng, calib, cfg.quant_calib_batches * B, cfg.input_size, 0)
+    out = {"phase": "serve", "card": card_line,
+           "config": f"configs/cub_detect.yaml with use_pallas: true (inception_v3 "
+                     f"{cfg.input_size}, P={P}, batch {B}, K={cfg.max_detections}, "
+                     f"{cfg.compute_dtype} backbone, float32 head), random weights from seed 0"}
+    base = ["--checkpoint_path", logdir, "--priors", priors_path, "--config", cfg_path]
+    exports = {"f32": ["--batch_sizes", "1", "32"],
+               "folded": ["--fold_bn", "--batch_size", "32"],
+               "int8": ["--quantize", "int8", "--calib_tfrecords", calib, "--batch_size", "32"]}
+    export_s = {}
+    for name, extra in exports.items():
+        t0 = time.perf_counter()
+        with quiet:
+            if cli_export.main(base + ["--output_dir", os.path.join(root, name)] + extra):
+                raise AssertionError(f"export CLI failed ({name})")
+        export_s[name] = time.perf_counter() - t0
+    shutil.rmtree(logdir, ignore_errors=True)  # some 350 MB
+    t0 = time.perf_counter()
+    dets = {name: load_exported(os.path.join(root, name)) for name in exports}
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for det in dets.values():
+        det.warmup()
+    warmup_s = time.perf_counter() - t0
+    if sorted(dets["f32"].calls) != [1, 32] or dets["f32"].batch_size != 32:
+        raise AssertionError(f"programs {sorted(dets['f32'].calls)}")
+
+    # each program against the live function on the same images, bitwise,
+    # with the kernels counted inside the program's call
+    x = dev(rng.uniform(-1, 1, (B, cfg.input_size, cfg.input_size, 3)).astype(np.float32))
+    tpriors = dev(priors)
+    live_vars = {"params": state.ema_params, "batch_stats": state.batch_stats}
+    folded_model = inference.build_model(cfg, P, folded=True, device=DEV)
+    folded_vars = fold_batch_norms(live_vars)
+    fused_units = sum(1 for m in folded_model.modules() if isinstance(m, ConvBN) and m.fused)
+    with np.load(os.path.join(root, "int8", "params.npz")) as z:
+        q_vars = {}
+        for key in z.files:
+            coll, name = key.split("/", 1)
+            q_vars.setdefault(coll, {})[name] = dev(z[key])
+    int8_cfg = dataclasses.replace(cfg, quantize="int8")
+    int8_model = inference.build_model(int8_cfg, P, folded=True, quantize="int8", device=DEV)
+    lives = {
+        ("f32", 32): lambda t: inference.apply_and_postprocess(model, live_vars, t, tpriors, cfg),
+        ("f32", 1): lambda t: inference.apply_and_postprocess(model, live_vars, t, tpriors, cfg),
+        ("folded", 32): lambda t: inference.apply_and_postprocess(
+            folded_model, folded_vars, t, tpriors, cfg),
+        ("int8", 32): lambda t: inference.apply_and_postprocess(
+            int8_model, q_vars, t, tpriors, int8_cfg),
+    }
+    want_counts = {"f32": {"nms": 1, "fused_matmul": 3, "box_decode": 1},
+                   "folded": {"nms": 1, "fused_matmul": fused_units + 3, "box_decode": 1},
+                   "int8": {"nms": 1, "fused_matmul": 3, "box_decode": 1}}
+    total, outs, launches = {}, {}, {}
+    for (name, size), live in lives.items():
+        xs = x[:size]
+        call = dets[name].calls[size]
+        with torch.no_grad():
+            got, counts = counted(lambda: {k: v.cpu() for k, v in call(xs).items()},
+                                  want_counts[name], f"exported {name} b{size}")
+            add_counts(total, counts)
+            launches[f"{name}_b{size}"] = counts
+            want = live(xs)
+        equal_outputs(got, want, f"exported {name} b{size} against live")
+        outs[(name, size)] = got
+    # int8 against f32 on the same images: the sorted score lists
+    gap = float((outs[("int8", 32)]["scores"] - outs[("f32", 32)]["scores"]).abs().max())
+    check_results([{"image_id": i, "boxes": outs[("int8", 32)]["boxes"][i].numpy(),
+                    "scores": outs[("int8", 32)]["scores"][i].numpy()} for i in range(B)],
+                  B, cfg.max_detections)
+    # ms a batch of 32: each program and the live f32 function, in turns
+    order = ["f32", "folded", "int8"]
+    ms = {n: [] for n in order + ["live_f32"]}
+    for n in order + ["live_f32"] + list(reversed(order)):
+        call = lives[("f32", 32)] if n == "live_f32" else dets[n].calls[32]
+        ms[n].append(program_ms(call, x))
+    del folded_vars, q_vars, int8_model, folded_model
+    torch.cuda.empty_cache()
+
+    out.update({"exports": {n: sorted(os.listdir(os.path.join(root, n))) for n in exports},
+                "export_cli_seconds": export_s, "load_seconds": load_s,
+                "warmup_seconds": warmup_s, "exported_equals_live_bitwise": True,
+                "program_launches": launches, "fused_1x1_units": fused_units,
+                "ms_per_batch_of_32": ms, "int8_scores_max_abs_gap_vs_f32": gap,
+                "int8_routes": int8_route_checks(rng)})
+    del dets
+    torch.cuda.empty_cache()
+
+    # the HTTP daemon over the batch-1/32 export; its calls go through the
+    # same programs, counted
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    http = http_phase(os.path.join(root, "f32"), rng)
+    counts = kernels.launch_counts()
+    if counts["nms"] < 1 or counts["fused_matmul"] < 3 or counts["box_decode"] < 1 or \
+            counts["nms"] * 3 != counts["fused_matmul"] or counts["nms"] != counts["box_decode"]:
+        raise AssertionError(f"HTTP run launch counts {counts}")
+    add_counts(total, counts)
+    out.update({"http": http, "http_launches": counts})
+    shutil.rmtree(root, ignore_errors=True)
+
+    # SSD with flip TTA: 2 x 9,468 candidates an image into B1
+    ssd_root = os.path.join(".work", "chip_smoke_serve_ssd")
+    shutil.rmtree(ssd_root, ignore_errors=True)
+    os.makedirs(ssd_root)
+    shipped = parse_config_file("configs/ssd_multiscale.yaml")
+    sizes = [feature_grid(shipped.input_size, e) for e in shipped.ssd_endpoints]
+    ssd_priors_path = os.path.join(ssd_root, "priors_ms.pkl")
+    with quiet:
+        if cli_priors.main(["--output", ssd_priors_path, "--mode", "multiscale",
+                            "--feature_map_sizes", *map(str, sizes), "--aspect_ratios",
+                            "1.0", "2.0", "0.5", "3.0", "0.333"]):
+            raise AssertionError("priors CLI failed")
+    ssd_priors = load_priors(ssd_priors_path)
+    shutil.rmtree(ssd_root, ignore_errors=True)
+    Pssd = ssd_priors.shape[0]
+    tcfg = dataclasses.replace(shipped, num_priors=Pssd, flip_tta=True)
+    smodel = inference.build_model(tcfg, Pssd, device=DEV)
+    svars = make_variables(smodel, gen)
+    sdata = make_dataset(rng, batches=2, batch=tcfg.batch_size, valid_last=tcfg.batch_size)
+    fns = inference.make_detect_loop_fns(tcfg, ssd_priors, device=DEV)
+    inference.run_detect_loop(tcfg, svars, sdata[:1], ssd_priors, fns=fns, device=DEV)
+    t0 = time.perf_counter()
+    with nms_inputs_seen() as seen:
+        results, counts = counted(lambda: inference.run_detect_loop(
+            tcfg, svars, sdata, ssd_priors, fns=fns, device=DEV), {"nms": len(sdata)},
+            "ssd flip-TTA detect")
+    seconds = time.perf_counter() - t0
+    add_counts(total, counts)
+    check_results(results, tcfg.batch_size * len(sdata), tcfg.max_detections)
+    if seen[0][0].shape[1] != 2 * Pssd or nms_kernel.nms_route(2 * Pssd, tcfg.max_detections) \
+            != "global":
+        raise AssertionError(f"flip TTA gave B1 {tuple(seen[0][0].shape)}")
+    row = nms_at_path_inputs("ssd_flip_tta", seen)
+    row["route"] = "global keys"
+    out.update({"ssd_flip_tta": {"P_to_nms": 2 * Pssd, "batches": len(sdata),
+                                 "ms_per_batch": seconds * 1e3 / len(sdata),
+                                 "launches": counts, "nms": row}})
+    del smodel, svars, fns
+    torch.cuda.empty_cache()
+    out.update({"ok": True, "launches": total})
+    emit(out)
+    return total, {"nms_ssd_flip_tta": row}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -1832,19 +2246,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_counts, ssd_rows = phase_ssd(rng, gen, card_line, records)
     mobilenet_counts, mobilenet_rows = phase_mobilenet(rng, gen, card_line)
+    torch.cuda.empty_cache()
+    serve_counts, serve_rows = phase_serve(rng, gen, card_line)
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the five paths: detect (B1, B2, B3a), train (B2, B3b, B4),
-    # cli (B1), ssd (B1, B4) and mobilenet (B1, B2, B3a, B3b, B4)
-    paths = (counts, train_counts, cli_counts, ssd_counts, mobilenet_counts)
+    # launches on the six paths: detect (B1, B2, B3a), train (B2, B3b, B4),
+    # cli (B1), ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve
+    # (B1, B2, B3a inside the exported programs; B1 with flip TTA)
+    paths = (counts, train_counts, cli_counts, ssd_counts, mobilenet_counts, serve_counts)
     for e in entries + [backward]:
         e["launches"] = sum(c.get(e["name"], 0) for c in paths)
     # the new paths' shapes beside each kernel's main row
     by_name = {e["name"]: e for e in entries + [backward]}
     by_name["nms"].update(ssd_p9468_b32=ssd_rows["nms_ssd"],
                           ssd_multiclass_p1024=ssd_rows["nms_ssd_multiclass"],
-                          mobilenet_p128_b64=mobilenet_rows["nms_mobilenet"])
+                          mobilenet_p128_b64=mobilenet_rows["nms_mobilenet"],
+                          ssd_flip_tta_p18936_b32=serve_rows["nms_ssd_flip_tta"])
     by_name["match"].update(ssd_global_scratch=ssd_rows["match_ssd"],
                             mobilenet_p128=mobilenet_rows["match_mobilenet"])
     by_name["fused_matmul"]["mobilenet_head"] = mobilenet_rows["fused_matmul_mobilenet"]

@@ -13,10 +13,24 @@ see :func:`multibox_tpu_torch.device.resolve_device`.
 
 from multibox_tpu_torch.config import Config, parse_config_dict, parse_config_file
 from multibox_tpu_torch.device import resolve_device
+from multibox_tpu_torch.version import __version__
+
+
+def __getattr__(name):
+    """Lazy ``load_exported`` (keeps a bare ``import multibox_tpu_torch``
+    from loading the serving path)."""
+    if name == "load_exported":
+        from multibox_tpu_torch.serving import load_exported
+
+        return load_exported
+    raise AttributeError(f"module 'multibox_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = [
+    "__version__",
     "Config",
     "parse_config_dict",
     "parse_config_file",
+    "load_exported",
     "resolve_device",
 ]

@@ -32,9 +32,11 @@ def run_detection(cfg, tfrecords, priors, checkpoint_path,
     """Detections of the latest checkpoint in ``checkpoint_path`` over
     ``tfrecords`` (or over ``dataset``, e.g. an ``ImageFileDataset``): a
     list of per-image dicts with the valid slots only (host numpy). The
-    host loop is ``inference.run_detect_loop``, which refuses
-    ``quantize="int8"`` (ROADMAP item 16). One process is the whole set
-    (the JAX package's multi-host gather waits for item 18)."""
+    host loop is ``inference.run_detect_loop``. With ``cfg.quantize ==
+    "int8"`` the EMA weights are folded, quantized and calibrated on this
+    run's own first ``cfg.quant_calib_batches`` batches (the dataset is
+    iterated again from the start for the detection). One process is the
+    whole set (the JAX package's multi-host gather waits for item 18)."""
     from multibox_tpu_torch.data.pipeline import DetectionDataset
     from multibox_tpu_torch.inference import build_model, run_detect_loop
     from multibox_tpu_torch.train.state import create_train_state
@@ -51,7 +53,17 @@ def run_detection(cfg, tfrecords, priors, checkpoint_path,
             canvas_size=cfg.input_size,
             max_num_bboxes=cfg.max_num_bboxes,
         )
-    return run_detect_loop(cfg, state.detect_variables(), dataset, priors,
+    variables = state.detect_variables()
+    if cfg.quantize != "none":
+        from multibox_tpu_torch.quantize import (
+            calib_batches_from_dataset,
+            prepare_quantized_variables,
+        )
+
+        variables = prepare_quantized_variables(
+            cfg, variables, calib_batches_from_dataset(dataset, cfg.quant_calib_batches),
+            device=device)
+    return run_detect_loop(cfg, variables, dataset, priors,
                            score_threshold=score_threshold, device=device)
 
 

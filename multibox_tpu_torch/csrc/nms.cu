@@ -38,8 +38,22 @@
 //
 // Shared memory: 8 B a key (the sort pads P to a power of two), 16 B a kept
 // box, 20 B a staged box and score. P <= 16384 keys fit (128 KiB) with a kept
-// list of up to 5,312 boxes beside them (any K at P <= 8192); a larger
-// min(K, P) is refused. Boxes that do not fit stay in global memory.
+// list of up to 5,312 boxes beside them (any K at P <= 8192). Boxes that do
+// not fit stay in global memory.
+//
+// Past that (more keys than 16384, or a kept list that does not fit beside
+// them: the SSD detect with flip TTA gives 18,936 boxes an image) the keys
+// live in a global scratch [B, npad] that the caller allocates, and the
+// block still owns its image: `nms_global_kernel`. It sorts the keys in
+// tiles of 16384 with the same shared-memory passes (each tile's direction
+// taken from its position in the whole sequence, so that the tiles form the
+// bitonic runs of the full sort), then runs the merges of larger strides as
+// coalesced compare-exchange passes over global memory between block
+// barriers, each followed by the strides inside a tile on the tile in shared
+// memory. The scan then reads the keys from global memory, with the kept
+// list in the shared memory the tiles used. Only a kept list larger than
+// shared memory is refused (about 13,500 boxes). Same keys, same scan, so the
+// same result as the shared route, bitwise.
 //
 // Arithmetic is held to the plain PyTorch version op for op, each a
 // correctly rounded f32 operation (no FMA contraction), so a box that sits
@@ -120,27 +134,31 @@ __device__ __forceinline__ int key_index(u64 key) {
   return key ? static_cast<int>(~static_cast<unsigned>(key)) : -1;
 }
 
-// Stage: the keys of an image's boxes into skey[0, npad), 0 for a dead box
-// and for the padding; with `sbox`, also the boxes (16-byte loads) and the
-// scores into shared memory, in the same round trip. Without, the boxes'
-// lines are prefetched into L2 for the scan, in a loop of their own so that
-// the score loads are not held behind them.
+// The boxes' lines prefetched into L2 for a scan that reads them from global
+// memory, in a loop of their own so that the score loads are not held behind
+// them.
+__device__ __forceinline__ void prefetch_boxes(const float4* gbox, int P) {
+  for (int i = 8 * threadIdx.x; i < P; i += 8 * kThreads)  // 8 boxes a 128-byte line
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(gbox + i));
+}
+
+// Stage: the keys of boxes first .. first + n - 1 into skey[0, n), 0 for a
+// dead box and for the padding; with `sbox` (first = 0), also the boxes
+// (16-byte loads) and the scores into shared memory, in the same round trip.
 __device__ __forceinline__ void stage_keys(u64* skey, float4* sbox, float* sscore,
                                            const float4* gbox, const float* gscore, int P,
-                                           int npad, float score_thr) {
-  if (!sbox)
-    for (int i = 8 * threadIdx.x; i < P; i += 8 * kThreads)  // 8 boxes a 128-byte line
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(gbox + i));
+                                           int first, int n, float score_thr) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < npad; i += kThreads) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int gi = first + i;
     u64 key = 0;
-    if (i < P) {
-      const float s = gscore[i];
+    if (gi < P) {
+      const float s = gscore[gi];
       if (sbox) {
-        sbox[i] = gbox[i];
+        sbox[i] = gbox[gi];
         sscore[i] = s;
       }
-      if (s >= score_thr && s != -CUDART_INF_F) key = live_key(s, i);
+      if (s >= score_thr && s != -CUDART_INF_F) key = live_key(s, gi);
     }
     skey[i] = key;
   }
@@ -159,13 +177,15 @@ __device__ __forceinline__ u64 exchange(u64 a, int e, int j, int k) {
 // The passes of strides <= 32 for k = k_lo ... k_hi (the first from stride
 // j_first), which stay inside aligned segments of 64 keys: each warp loads a
 // segment into two registers a lane (positions lane and lane + 32), runs the
-// passes with shuffles and stores it back.
-__device__ __forceinline__ void segment_passes(u64* skey, int npad, int k_lo, int k_hi,
-                                               int j_first) {
+// passes with shuffles and stores it back. skey[0, n) holds the keys at
+// positions first .. first + n - 1 of the whole sequence (first a multiple
+// of n), from which the direction of each run is taken.
+__device__ __forceinline__ void segment_passes(u64* skey, int n, int first, int k_lo,
+                                               int k_hi, int j_first) {
   const int lane = threadIdx.x & 31;
-  for (int base = 64 * (threadIdx.x >> 5); base < npad; base += 2 * kThreads) {
+  for (int base = 64 * (threadIdx.x >> 5); base < n; base += 2 * kThreads) {
     u64 a0 = skey[base + lane], a1 = skey[base + lane + 32];
-    const int e0 = base + lane, e1 = e0 + 32;
+    const int e0 = first + base + lane, e1 = e0 + 32;
     for (int k = k_lo; k <= k_hi; k <<= 1) {
       for (int j = (k == k_lo) ? j_first : (k >> 1); j > 0; j >>= 1) {
         if (j == 32) {  // partners in one lane
@@ -184,29 +204,48 @@ __device__ __forceinline__ void segment_passes(u64* skey, int npad, int k_lo, in
   }
 }
 
-// Bitonic sort of skey[0, npad) (a power of two >= 64), descending; every
-// thread of the block calls it, after a barrier that follows the keys'
-// writes, and a barrier follows it. Strides <= 32 run in registers
-// (segment_passes); a wider stride is a pass over shared memory between two
-// block barriers.
-__device__ __forceinline__ void sort_keys_desc(u64* skey, int npad) {
-  segment_passes(skey, npad, 2, 64, 1);
-  for (int k = 128; k <= npad; k <<= 1) {
+// A pass of stride j (64 <= j < n) over skey[0, n), the keys at positions
+// first .. first + n - 1, for the runs of length k; the caller puts a block
+// barrier before and after.
+__device__ __forceinline__ void shared_pass(u64* skey, int n, int first, int k, int j) {
+  for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
+    const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+    const int hi = lo + j;
+    const u64 a = skey[lo], b = skey[hi];
+    if ((((first + lo) & k) == 0) ? (a < b) : (a > b)) {
+      skey[lo] = b;
+      skey[hi] = a;
+    }
+  }
+}
+
+// Bitonic sort of skey[0, n) (a power of two >= 64), the keys at positions
+// first .. first + n - 1 of the whole sequence: descending when that tile is
+// the whole sequence (first = 0), else in the direction the tile's run of
+// length n has in the full sort. Every thread of the block calls it, after a
+// barrier that follows the keys' writes, and a barrier follows it. Strides
+// <= 32 run in registers (segment_passes); a wider stride is a pass over
+// shared memory between two block barriers.
+__device__ __forceinline__ void sort_keys_desc(u64* skey, int n, int first) {
+  segment_passes(skey, n, first, 2, 64, 1);
+  for (int k = 128; k <= n; k <<= 1) {
     __syncthreads();
     for (int j = k >> 1; j >= 64; j >>= 1) {
-      for (int i = threadIdx.x; i < (npad >> 1); i += kThreads) {
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const int hi = lo + j;
-        const u64 a = skey[lo], b = skey[hi];
-        if (((lo & k) == 0) ? (a < b) : (a > b)) {
-          skey[lo] = b;
-          skey[hi] = a;
-        }
-      }
+      shared_pass(skey, n, first, k, j);
       __syncthreads();
     }
-    segment_passes(skey, npad, k, k, 32);
+    segment_passes(skey, n, first, k, k, 32);
   }
+}
+
+// The strides n/2 .. 1 of the runs of length k > n on the tile skey[0, n)
+// (positions first .. first + n - 1); barriers as for sort_keys_desc.
+__device__ __forceinline__ void merge_tile(u64* skey, int n, int first, int k) {
+  for (int j = n >> 1; j >= 64; j >>= 1) {
+    shared_pass(skey, n, first, k, j);
+    __syncthreads();
+  }
+  segment_passes(skey, n, first, k, k, 32);
 }
 
 __host__ __device__ inline int pad_keys(int P) {
@@ -225,45 +264,21 @@ __host__ __device__ inline size_t smem_bytes(int P, int K, bool staged) {
          (staged ? static_cast<size_t>(P) * (sizeof(float4) + sizeof(float)) : 0);
 }
 
-// kStaged: the boxes and scores are in shared memory beside the keys and the
-// kept list, so that every access of the scan is a shared-memory one.
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-nms_kernel(const float4* __restrict__ boxes,  // [B, P]
-           const float* __restrict__ scores,  // [B, P]
-           int* __restrict__ sel_idx,         // [B, K]
-           float* __restrict__ sel_scores,    // [B, K]
-           int P, int K, Threshold thr, float score_thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The scan over the sorted keys skey[0, npad) (in shared or global memory),
+// kChunk candidates at a time, and the outputs' tail; every thread of the
+// block calls it after a barrier that follows the sort. `kept` holds room for
+// min(K, P) boxes in shared memory; the candidates' boxes and scores are read
+// from cand_box / cand_score.
+__device__ __forceinline__ void scan_chunks(const u64* skey, int npad, float4* kept,
+                                            const float4* cand_box, const float* cand_score,
+                                            int* out_idx, float* out_score, int K,
+                                            const Threshold& thr) {
   __shared__ u64 rowpart[kGroups][kChunk];
   __shared__ unsigned deadw[kWarps];
   __shared__ int s_nk;
-
-  const int img = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int npad = pad_keys(P);
-  const int cap = K < P ? K : P;
-
-  const float4* gbox = boxes + static_cast<size_t>(img) * P;
-  const float* gscore = scores + static_cast<size_t>(img) * P;
-  int* out_idx = sel_idx + static_cast<size_t>(img) * K;
-  float* out_score = sel_scores + static_cast<size_t>(img) * K;
-  u64* skey = reinterpret_cast<u64*>(smem);
-  float4* kept = reinterpret_cast<float4*>(skey + npad);
-  float4* sbox = kept + cap;
-  float* sscore = reinterpret_cast<float*>(sbox + P);
-  // where the scan finds a candidate's box and score
-  const float4* cand_box = kStaged ? sbox : gbox;
-  const float* cand_score = kStaged ? sscore : gscore;
-
-  stage_keys(skey, kStaged ? sbox : nullptr, sscore, gbox, gscore, P, npad, score_thr);
-  __syncthreads();
-  sort_keys_desc(skey, npad);
-  __syncthreads();
-
-  // ---- scan
   constexpr int R = kChunk / 32;  // candidates a lane of warp 0 resolves
   const int c = tid % kChunk;      // this thread's candidate
   const int g = tid / kChunk;      // and its group
@@ -367,32 +382,153 @@ nms_kernel(const float4* __restrict__ boxes,  // [B, P]
   }
 }
 
+// kStaged: the boxes and scores are in shared memory beside the keys and the
+// kept list, so that every access of the scan is a shared-memory one.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+nms_kernel(const float4* __restrict__ boxes,  // [B, P]
+           const float* __restrict__ scores,  // [B, P]
+           int* __restrict__ sel_idx,         // [B, K]
+           float* __restrict__ sel_scores,    // [B, K]
+           int P, int K, Threshold thr, float score_thr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int img = blockIdx.x;
+  const int npad = pad_keys(P);
+  const int cap = K < P ? K : P;
+
+  const float4* gbox = boxes + static_cast<size_t>(img) * P;
+  const float* gscore = scores + static_cast<size_t>(img) * P;
+  u64* skey = reinterpret_cast<u64*>(smem);
+  float4* kept = reinterpret_cast<float4*>(skey + npad);
+  float4* sbox = kept + cap;
+  float* sscore = reinterpret_cast<float*>(sbox + P);
+
+  if (!kStaged) prefetch_boxes(gbox, P);
+  stage_keys(skey, kStaged ? sbox : nullptr, sscore, gbox, gscore, P, 0, npad, score_thr);
+  __syncthreads();
+  sort_keys_desc(skey, npad, 0);
+  __syncthreads();
+  scan_chunks(skey, npad, kept, kStaged ? sbox : gbox, kStaged ? sscore : gscore,
+              sel_idx + static_cast<size_t>(img) * K, sel_scores + static_cast<size_t>(img) * K,
+              K, thr);
+}
+
+// The global-keys route: the keys of image b in keys[b * npad, (b + 1) *
+// npad), sorted in tiles of min(npad, kMaxKeys) in shared memory and merged
+// over global memory (see the head of the file); the kept list in the shared
+// memory the tiles used; boxes and scores read from global memory (L2).
+__global__ void __launch_bounds__(kThreads)
+nms_global_kernel(const float4* __restrict__ boxes,  // [B, P]
+                  const float* __restrict__ scores,  // [B, P]
+                  int* __restrict__ sel_idx,         // [B, K]
+                  float* __restrict__ sel_scores,    // [B, K]
+                  u64* keys,                         // [B, npad] scratch
+                  int P, int K, Threshold thr, float score_thr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int img = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int npad = pad_keys(P);
+  const int tile = npad < kMaxKeys ? npad : kMaxKeys;
+  const float4* gbox = boxes + static_cast<size_t>(img) * P;
+  const float* gscore = scores + static_cast<size_t>(img) * P;
+  u64* gkey = keys + static_cast<size_t>(img) * npad;
+  u64* stile = reinterpret_cast<u64*>(smem);
+
+  prefetch_boxes(gbox, P);
+  // runs of length <= tile: each tile sorted in shared memory
+  for (int t0 = 0; t0 < npad; t0 += tile) {
+    stage_keys(stile, nullptr, nullptr, gbox, gscore, P, t0, tile, score_thr);
+    __syncthreads();
+    sort_keys_desc(stile, tile, t0);
+    __syncthreads();
+    for (int i = tid; i < tile; i += kThreads) gkey[t0 + i] = stile[i];
+    __syncthreads();
+  }
+  // runs of length k > tile: strides >= tile over global memory, the rest
+  // tile by tile in shared memory
+  for (int k = 2 * tile; k <= npad; k <<= 1) {
+    for (int j = k >> 1; j >= tile; j >>= 1) {
+      for (int i = tid; i < (npad >> 1); i += kThreads) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo + j;
+        const u64 a = gkey[lo], b = gkey[hi];
+        if (((lo & k) == 0) ? (a < b) : (a > b)) {
+          gkey[lo] = b;
+          gkey[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int t0 = 0; t0 < npad; t0 += tile) {
+      for (int i = tid; i < tile; i += kThreads) stile[i] = gkey[t0 + i];
+      __syncthreads();
+      merge_tile(stile, tile, t0, k);
+      __syncthreads();
+      for (int i = tid; i < tile; i += kThreads) gkey[t0 + i] = stile[i];
+      __syncthreads();
+    }
+  }
+  scan_chunks(gkey, npad, reinterpret_cast<float4*>(smem), gbox, gscore,
+              sel_idx + static_cast<size_t>(img) * K, sel_scores + static_cast<size_t>(img) * K,
+              K, thr);
+}
+
+// Shared memory of the global-keys route: a tile of keys during the sort,
+// the kept list after it.
+__host__ __device__ inline size_t global_smem_bytes(int P, int K) {
+  const int npad = pad_keys(P);
+  const size_t tile = static_cast<size_t>(npad < kMaxKeys ? npad : kMaxKeys) * sizeof(u64);
+  const size_t kept = static_cast<size_t>(K < P ? K : P) * sizeof(float4);
+  return tile > kept ? tile : kept;
+}
+
 // The boxes and scores are staged when they fit beside the keys and the
 // kept list.
 inline bool stage_fits(int P, int K) { return smem_bytes(P, K, true) <= kSmemLimit; }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue when P
-// is past the keys that fit or the kept list does not fit beside them (the
-// wrapper refuses both first). (thr_mid, thr_tie_up) is the threshold test
-// of `suppresses`, worked out from iou_thr by the caller.
+// Returns cudaGetLastError() after the launch. (thr_mid, thr_tie_up) is the
+// threshold test of `suppresses`, worked out from iou_thr by the caller. With
+// `key_scratch` null the keys stay in shared memory, and cudaErrorInvalidValue
+// is returned when P is past the keys that fit or the kept list does not fit
+// beside them; with `key_scratch` ([B, pad_keys(P)] 64-bit words) the keys go
+// there (the global-keys route), and cudaErrorInvalidValue is returned when
+// the kept list alone does not fit in shared memory. The wrapper refuses all
+// of these first.
 extern "C" int mbx_nms(const void* boxes, const void* scores, void* sel_idx,
-                       void* sel_scores, int B, int P, int K, float iou_thr,
-                       double thr_mid, int thr_tie_up, float score_thr, void* stream) {
+                       void* sel_scores, void* key_scratch, int B, int P, int K,
+                       float iou_thr, double thr_mid, int thr_tie_up, float score_thr,
+                       void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  if (P <= 0 || P > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
+  if (P <= 0 || P > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const Threshold thr{iou_thr, thr_mid, thr_tie_up != 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (key_scratch) {
+    const size_t smem = global_smem_bytes(P, K);
+    if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          nms_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    nms_global_kernel<<<B, kThreads, smem, st>>>(
+        static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+        static_cast<int*>(sel_idx), static_cast<float*>(sel_scores),
+        static_cast<u64*>(key_scratch), P, K, thr, score_thr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (P > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
   const bool staged = stage_fits(P, K);
   const size_t smem = smem_bytes(P, K, staged);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const Threshold thr{iou_thr, thr_mid, thr_tie_up != 0};
   auto kernel = staged ? nms_kernel<true> : nms_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, st>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<int*>(sel_idx), static_cast<float*>(sel_scores), P, K, thr, score_thr);
   return static_cast<int>(cudaGetLastError());

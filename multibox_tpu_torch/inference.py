@@ -47,8 +47,9 @@ def build_model(
     for model hyperparameters across detect / export / train).
 
     ``folded=True`` builds the inference-only BN-folded variant (use with
-    params from ``models.inception_v3.fold_batch_norms``); ``quantize`` is
-    the int8 variant, which is not ported yet and raises."""
+    params from ``models.inception_v3.fold_batch_norms``); ``quantize``
+    (``"int8"`` | ``"calib"``) builds the int8 PTQ variant on top of it (use
+    with variables from ``quantize.prepare_quantized_variables``)."""
     return MultiBoxDetector(
         num_priors=num_priors,
         input_size=cfg.input_size,
@@ -246,13 +247,23 @@ def make_detect_body(cfg: Config, priors, use_ema: bool = None, device=None):
         raise ValueError(
             f"unknown quantize mode: {cfg.quantize!r} (expected 'none' or 'int8')"
         )
-    if cfg.quantize == "int8":
-        raise NotImplementedError(
-            "quantize='int8' (post-training quantization) is a later slice "
-            "of the port; see ROADMAP.md, queue 1, item 16"
-        )
     device = resolve_device(device)
     priors = torch.as_tensor(np.asarray(priors, np.float32)).to(device)
+    if cfg.quantize == "int8":
+        # Int8 PTQ: EMA selection, BN folding and weight quantization are
+        # already baked into the prepared variables
+        # (quantize.prepare_quantized_variables): apply them directly.
+        model_q = build_model(cfg, priors.shape[0], folded=True, quantize="int8",
+                              device=device)
+
+        @torch.no_grad()
+        def detect_q(variables, images):
+            images = torch.as_tensor(images).to(device)
+            return apply_and_postprocess(
+                model_q, {"params": variables["params"], "quant": variables["quant"]},
+                images, priors, cfg)
+
+        return detect_q
     model = build_model(cfg, priors.shape[0], device=device)
     if use_ema is None:
         use_ema = cfg.use_ema_for_detect

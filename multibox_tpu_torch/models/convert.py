@@ -17,6 +17,9 @@ splitting again would corrupt them):
 * ``bias``, ``mean``, ``var``, ``scale`` of rank 1 → same name, same
   values (Inception's BatchNorm has no ``scale``, slim's convention;
   MobileNetV2's learns one);
+* the int8 model's leaves (``models.quant``): ``kernel_q`` of rank 4 (int8
+  HWIO) → ``kernel_q`` (OIHW) under the same transpose, ``w_scale`` of
+  rank 1 and the ``quant`` collection's ``x_scale`` of rank 0 unchanged;
 * anything else is refused.
 
 The ``ema`` tree has the shape of ``params`` and converts the same way.
@@ -49,9 +52,13 @@ def _convert_collection(tree: Mapping, device) -> Dict[str, torch.Tensor]:
             raise ValueError(f"module name with a dot cannot be mapped: {path}")
         if name == "kernel" and arr.ndim == 4:
             name, arr = "weight", np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
+        elif name == "kernel_q" and arr.ndim == 4:
+            arr = np.transpose(arr, (3, 2, 0, 1))
         elif name == "kernel" and arr.ndim == 2:
             pass
-        elif name in ("bias", "mean", "var", "scale") and arr.ndim == 1:
+        elif name in ("bias", "mean", "var", "scale", "w_scale") and arr.ndim == 1:
+            pass
+        elif name == "x_scale" and arr.ndim == 0:
             pass
         else:
             raise ValueError(
@@ -66,16 +73,17 @@ def _convert_collection(tree: Mapping, device) -> Dict[str, torch.Tensor]:
 
 
 def flax_to_torch(variables: Mapping, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Convert ``{"params", "batch_stats"?, "ema"?}`` of numpy arrays to
-    the variables of ``MultiBoxDetector`` on ``device`` (``None`` = CUDA)."""
+    """Convert ``{"params", "batch_stats"?, "ema"?}`` (the int8 model's
+    ``{"params", "quant"}``) of numpy arrays to the variables of
+    ``MultiBoxDetector`` on ``device`` (``None`` = CUDA)."""
     device = resolve_device(device)
-    unknown = set(variables) - {"params", "batch_stats", "ema"}
+    unknown = set(variables) - {"params", "batch_stats", "ema", "quant"}
     if unknown:
         raise ValueError(f"unknown variable collections: {sorted(unknown)}")
     if "params" not in variables:
         raise ValueError("variables have no 'params' collection")
     return {
         name: _convert_collection(variables[name], device)
-        for name in ("params", "batch_stats", "ema")
+        for name in ("params", "batch_stats", "ema", "quant")
         if name in variables
     }

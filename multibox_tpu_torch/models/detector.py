@@ -175,7 +175,8 @@ class MultiBoxDetector(nn.Module):
 
 def apply(model: MultiBoxDetector, apply_vars: Variables, images: torch.Tensor,
           train: bool = False):
-    """Run ``model`` on ``{"params": ..., "batch_stats": ...}``.
+    """Run ``model`` on ``{"params": ..., "batch_stats": ...}`` (the int8
+    variant: ``{"params": ..., "quant": ...}``).
 
     Returns ``(loc, conf)``; with ``train=True``, ``((loc, conf),
     new_batch_stats)``: BatchNorm normalizes with the batch statistics and
@@ -183,6 +184,7 @@ def apply(model: MultiBoxDetector, apply_vars: Variables, images: torch.Tensor,
     (detached), keyed like ``batch_stats``."""
     tensors = dict(apply_vars["params"])
     tensors.update(apply_vars.get("batch_stats", {}))
+    tensors.update(apply_vars.get("quant", {}))
     if not train:
         return functional_call(model, tensors, (images,), {"train": False},
                                strict=True)

@@ -162,7 +162,13 @@ class ConvBN(nn.Module):
     :func:`fold_batch_norms`. A folded 1×1 stride-1 unit is a
     :class:`FusedConv1x1`: with ``use_pallas=True`` it runs as one fused
     matmul + bias + ReLU kernel. The state-dict keys are the same either
-    way (``Conv.weight``, ``Conv.bias``)."""
+    way (``Conv.weight``, ``Conv.bias``).
+
+    ``quantize`` (``"int8"`` or ``"calib"``, folded only) makes every unit,
+    1×1 ones included, a :class:`~multibox_tpu_torch.models.quant.QuantConv`
+    (``Conv.kernel_q``, ``Conv.w_scale``, ``Conv.bias``, ``Conv.x_scale``),
+    as in the JAX package, where the int8 path takes precedence over the
+    fused 1×1 one."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  strides: Sequence[int] = (1, 1), padding: str = "SAME",
@@ -170,10 +176,6 @@ class ConvBN(nn.Module):
                  folded: bool = False, use_pallas: Optional[bool] = None,
                  quantize: Optional[str] = None, bn_momentum: float = 0.9997):
         super().__init__()
-        if quantize:
-            raise NotImplementedError(
-                "quantize (int8 post-training quantization) is a later slice "
-                "of the port")
         kernel, strides = tuple(kernel), tuple(strides)
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding: {padding!r}")
@@ -182,8 +184,16 @@ class ConvBN(nn.Module):
         self.padding = padding
         self.compute_dtype = compute_dtype
         self.folded = folded
+        self.quantize = check_quantize(quantize, folded)
         self.fused = folded and kernel == (1, 1) and strides == (1, 1)
-        if self.fused:
+        if self.quantize:
+            from multibox_tpu_torch.models.quant import QuantConv
+
+            self.fused = False
+            self.Conv = QuantConv(in_features, features, kernel, strides, padding,
+                                  calibrate=self.quantize == "calib",
+                                  compute_dtype=compute_dtype)
+        elif self.fused:
             self.Conv = FusedConv1x1(
                 in_features, features, use_bias=True, relu=True,
                 use_pallas=use_pallas, dtype=compute_dtype)
@@ -194,6 +204,8 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.quantize:
+            return torch.relu(self.Conv(x))
         if self.fused:
             # NCHW channels_last ↔ NHWC are views of the same bytes.
             return self.Conv(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -205,6 +217,17 @@ class ConvBN(nn.Module):
         if not self.folded:
             x = self.BatchNorm(x, train)
         return torch.relu(x)
+
+
+def check_quantize(quantize: Optional[str], folded: bool) -> Optional[str]:
+    """A unit's ``quantize`` option: ``None``, ``"int8"`` or ``"calib"``,
+    the last two on the folded variant only (the BatchNorm is already in
+    the weights that were quantized)."""
+    if quantize and quantize not in ("int8", "calib"):
+        raise ValueError(f"unknown quantize mode: {quantize!r} (expected 'int8' or 'calib')")
+    if quantize and not folded:
+        raise ValueError("quantize requires the folded model variant")
+    return quantize or None
 
 
 def _max_pool(x, window, strides):

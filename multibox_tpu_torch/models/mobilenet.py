@@ -29,6 +29,7 @@ from torch import nn
 from multibox_tpu_torch.models.inception_v3 import (
     SlimBatchNorm,
     _Conv,
+    check_quantize,
     conv2d_same,
 )
 
@@ -62,7 +63,9 @@ class ConvBNRelu6(nn.Module):
     baked into the conv (``inception_v3.fold_batch_norms``, which folds γ):
     Conv gains a bias, no BatchNorm op. State-dict keys ``Conv.weight``
     (OIHW, ``[out, in / groups, kh, kw]``), ``Conv.bias`` when folded,
-    ``BatchNorm.{scale,bias,mean,var}`` otherwise."""
+    ``BatchNorm.{scale,bias,mean,var}`` otherwise. ``quantize`` (``"int8"``
+    or ``"calib"``, folded only) makes the convolution a
+    :class:`~multibox_tpu_torch.models.quant.QuantConv`, grouped too."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Sequence[int] = (3, 3), strides: Sequence[int] = (1, 1),
@@ -70,21 +73,28 @@ class ConvBNRelu6(nn.Module):
                  bn_momentum: float = 0.997, relu: bool = True,
                  folded: bool = False, quantize: Optional[str] = None):
         super().__init__()
-        if quantize:
-            raise NotImplementedError(
-                "quantize (int8 post-training quantization) is a later slice "
-                "of the port")
         self.strides = tuple(strides)
         self.groups = groups
         self.compute_dtype = compute_dtype
         self.relu = relu
         self.folded = folded
-        self.Conv = _Conv(in_features // groups, features, tuple(kernel),
-                          use_bias=folded)
+        self.quantize = check_quantize(quantize, folded)
+        if self.quantize:
+            from multibox_tpu_torch.models.quant import QuantConv
+
+            self.Conv = QuantConv(in_features, features, tuple(kernel), self.strides,
+                                  groups=groups, calibrate=self.quantize == "calib",
+                                  compute_dtype=compute_dtype)
+        else:
+            self.Conv = _Conv(in_features // groups, features, tuple(kernel),
+                              use_bias=folded)
         if not folded:
             self.BatchNorm = SlimBatchNorm(features, bn_momentum, use_scale=True)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.quantize:
+            x = self.Conv(x)
+            return relu6(x) if self.relu else x
         dt = self.compute_dtype
         bias = self.Conv.bias.to(dt) if self.folded else None
         x = conv2d_same(x, self.Conv.weight.to(dt), bias, self.strides, self.groups)

@@ -170,9 +170,9 @@ def load_library():
         # (a, priors, out, P, rows, grid_x, grid_y, clip, stream)
         lib.mbx_box_decode.argtypes = [p, p, p, i, ll, u, u, i, p]
         lib.mbx_box_encode.argtypes = [p, p, p, i, ll, u, u, p]
-        # (boxes, scores, sel_idx, sel_scores, B, P, K, iou_thr, thr_mid,
-        #  thr_tie_up, score_thr, stream)
-        lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, ctypes.c_double, i, f, p]
+        # (boxes, scores, sel_idx, sel_scores, key_scratch, B, P, K, iou_thr,
+        #  thr_mid, thr_tie_up, score_thr, stream)
+        lib.mbx_nms.argtypes = [p, p, p, p, p, i, i, i, f, ctypes.c_double, i, f, p]
         # (x, w, b, out, workspace, M, K, N, relu, is_bf16, route, split,
         #  kslice, tile_n, stream)
         lib.mbx_fused_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
@@ -196,6 +196,24 @@ def check_launch(err: int, what: str) -> None:
 
 def current_stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# Kernels' scratch buffers, one per (device, stream, dtype), grown with
+# torch.empty: stream order keeps two launches on one stream from using one
+# buffer at the same time. The kernels allocate nothing themselves.
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch(device: torch.device, stream: int, numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """A buffer of at least ``numel`` elements of ``dtype`` for a launch on
+    ``stream``; its contents are undefined."""
+    key = (device, stream, dtype)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        _SCRATCH.pop(key, None)  # free the smaller buffer first
+        buf = torch.empty(numel, dtype=dtype, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def require(cond: bool, msg: str, *args) -> None:

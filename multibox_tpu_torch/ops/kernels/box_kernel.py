@@ -20,6 +20,10 @@ refuses a tensor that does not start on a 16-byte boundary (there is no
 scalar path). At the detect batch (32 × 256 boxes) the floor is the launch
 and one round trip to memory, not the bytes.
 
+The decode's launch is the operator ``multibox_torch::decode_boxes``
+(``torch.library.custom_op``), so that ``torch.export`` records it as one
+call; the encode (training only) is a plain function.
+
 Source: ``csrc/box.cu``.
 """
 
@@ -98,12 +102,15 @@ def _require_aligned(out: torch.Tensor, what: str) -> None:
     K.require(out.data_ptr() % 16 == 0, "{}: output not on a 16-byte boundary", what)
 
 
+@torch.library.custom_op("multibox_torch::decode_boxes", mutates_args=())
 def decode_boxes_cuda(
     offsets: torch.Tensor, priors: torch.Tensor, clip: bool = True
 ) -> torch.Tensor:
     """``prior + offset`` (+ clip to [0, 1]) in one pass. ``offsets``
     ``[..., P, 4]`` f32, ``priors`` ``[P, 4]`` or ``[1, P, 4]`` f32, both
-    starting on a 16-byte boundary."""
+    starting on a 16-byte boundary. The operator
+    ``multibox_torch::decode_boxes``: the launch is counted here, so an
+    exported program counts its launches when it runs."""
     if not offsets.is_cuda:
         return decode_boxes_plain(offsets, priors, clip)
     plan = _check(offsets, priors, "decode_boxes_cuda")
@@ -112,11 +119,16 @@ def decode_boxes_cuda(
     if plan.rows:
         lib = K.load_library()
         err = lib.mbx_box_decode(offsets.data_ptr(), priors.data_ptr(), out.data_ptr(),
-                                 plan.P, plan.rows, *plan.grid, int(bool(clip)),
+                                 plan.P, plan.rows, *plan.grid, int(clip),
                                  K.current_stream_ptr())
         K.check_launch(err, "mbx_box_decode")
         K.LAUNCHES["box_decode"] += 1
     return out
+
+
+@decode_boxes_cuda.register_fake
+def _decode_boxes_fake(offsets, priors, clip=True):
+    return torch.empty_like(offsets)
 
 
 def encode_boxes_cuda(gt: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,9 @@ The shapes the port runs are limited by different things on this card, so
   takes (rows not a multiple of 16 bytes, f32 with 64 < M < 512).
 
 The wrapper owns the workspace (kept per device and stream, grown with
-``torch.empty``); the kernels allocate nothing.
+``torch.empty``); the kernels allocate nothing. The launch is the operator
+``multibox_torch::fused_matmul_bias_relu`` (``torch.library.custom_op``),
+so that ``torch.export`` records it as one call.
 
 Backward: when an input requires grad, the call goes through
 :class:`_FusedLayer`, a ``torch.autograd.Function`` whose forward launches
@@ -47,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -137,18 +139,9 @@ def _plan(M: int, K: int, N: int, dtype: torch.dtype, aligned: bool = True) -> P
     return plan
 
 
-# f32 workspaces of the split routes, per (device, stream): stream order
-# keeps two launches on one stream from overlapping on it.
-_WORKSPACE: Dict[tuple, torch.Tensor] = {}
-
-
 def _workspace(device: torch.device, stream: int, floats: int) -> torch.Tensor:
-    key = (device, stream)
-    buf = _WORKSPACE.get(key)
-    if buf is None or buf.numel() < floats:
-        buf = torch.empty(floats, dtype=torch.float32, device=device)
-        _WORKSPACE[key] = buf
-    return buf
+    """The f32 workspace of the split routes (``kernels.scratch``)."""
+    return K.scratch(device, stream, floats, torch.float32)
 
 
 def fused_matmul_plain(
@@ -167,20 +160,34 @@ def fused_matmul_bias_relu(
     """``relu(x @ w + b)`` with the epilogue fused in the kernel.
 
     x: ``[M, K]``; w: ``[K, N]`` (both f32 or both bf16); b: ``[N]`` f32.
-    Returns ``[M, N]`` in ``x.dtype``. CUDA tensors launch the route
-    :func:`_plan` picks (or raise); CPU tensors take
-    :func:`fused_matmul_plain`.
+    Returns ``[M, N]`` in ``x.dtype``, through the operator
+    ``multibox_torch::fused_matmul_bias_relu`` (:func:`fused_matmul_op`):
+    CUDA tensors launch the route :func:`_plan` picks (or raise); CPU
+    tensors take :func:`fused_matmul_plain`. When an input requires grad
+    the call goes through :class:`_FusedLayer`.
     """
     if (torch.is_grad_enabled()
             and (x.requires_grad or w.requires_grad or b.requires_grad)):
-        # the Function's forward comes back here with grad mode off
         return _FusedLayer.apply(x, w, b, relu)
+    return fused_matmul_op(x, w, b, bool(relu))
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     K.require(x.dim() == 2 and w.dim() == 2 and b.dim() == 1
               and x.shape[1] == w.shape[0] and w.shape[1] == b.shape[0],
               "fused_matmul: x [M, K], w [K, N], b [N] expected, got {}, {}, {}",
               tuple(x.shape), tuple(w.shape), tuple(b.shape))
     K.require(x.device == w.device == b.device,
               "fused_matmul: tensors on {}, {}, {}", x.device, w.device, b.device)
+
+
+@torch.library.custom_op("multibox_torch::fused_matmul_bias_relu", mutates_args=())
+def fused_matmul_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    relu: bool) -> torch.Tensor:
+    """The operator behind :func:`fused_matmul_bias_relu`'s forward: the
+    launch (counted here, so an exported program counts its launches when
+    it runs), the plain version for a CPU tensor."""
+    _check_shapes(x, w, b)
     if not x.is_cuda:
         return fused_matmul_plain(x, w, b, relu)
     K.require(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
@@ -201,11 +208,17 @@ def fused_matmul_bias_relu(
               if plan.workspace_floats else 0)
         err = lib.mbx_fused_matmul(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), ws, M, Kdim, N,
-            int(bool(relu)), int(x.dtype == torch.bfloat16), ROUTES[plan.route],
+            int(relu), int(x.dtype == torch.bfloat16), ROUTES[plan.route],
             plan.split_k, plan.kslice, plan.tile[1], stream)
         K.check_launch(err, "mbx_fused_matmul")
         K.LAUNCHES["fused_matmul"] += 1
     return out
+
+
+@fused_matmul_op.register_fake
+def _fused_matmul_fake(x, w, b, relu):
+    _check_shapes(x, w, b)
+    return x.new_empty((x.shape[0], w.shape[1]))
 
 
 def fused_matmul_backward(x, w, b, y, g, relu: bool, needs=(True, True, True)):
@@ -229,7 +242,7 @@ class _FusedLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, relu):
-        y = fused_matmul_bias_relu(x, w, b, relu)
+        y = fused_matmul_op(x, w, b, bool(relu))
         ctx.save_for_backward(x, w, b, y)
         ctx.relu = relu
         return y

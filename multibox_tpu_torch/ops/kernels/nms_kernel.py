@@ -27,6 +27,19 @@ in numpy, for the CPU tests. The TPU kernel's shape (8 images on the sublane
 axis, 128-lane padding, masked row sums instead of indexing) answered that
 compiler's limits and is not carried over.
 
+Two routes (:func:`nms_route`): the keys in shared memory (up to
+:data:`MAX_BOXES` boxes, with the kept list beside them), or, past that, in
+a global scratch ``[B, npad]`` of 64-bit words that the wrapper allocates:
+the block sorts them in tiles of :data:`MAX_BOXES` in shared memory and
+merges the tiles over global memory (:func:`tiled_bitonic_sort` is the
+network, in numpy), then scans them as before with the kept list in shared
+memory. The SSD detect with flip TTA (18,936 boxes an image) takes the
+second route. Both give the same result, bitwise.
+
+The launch is the operator ``multibox_torch::nms_select``
+(``torch.library.custom_op``), so that ``torch.export`` records it as one
+call and an exported program counts its launches when it runs.
+
 :func:`nms_batched_plain` is the plain PyTorch version: same arithmetic op
 for op, so indices and scores agree exactly.
 
@@ -36,6 +49,7 @@ Source: ``csrc/nms.cu``.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -43,19 +57,85 @@ import torch
 from multibox_tpu_torch.ops import boxes as box_ops
 from multibox_tpu_torch.ops import kernels as K
 
-# The sort keys (8 B a box, P padded to a power of two) live in shared
-# memory: 128 KiB at this many boxes.
+# The sort keys (8 B a box, P padded to a power of two) of the shared route:
+# 128 KiB at this many boxes; also the tile of the global-keys route.
 MAX_BOXES = 16384
 CHUNK = 32  # csrc/nms.cu kChunk
 SMEM_LIMIT = 227 * 1024 - 16 * 1024  # csrc/nms.cu kSmemLimit
+MAX_P = 1 << 30  # csrc/nms.cu mbx_nms: indices and the padded count stay int
+
+
+def pad_keys(P: int) -> int:
+    """P padded to a power of two, at least 64 (csrc/nms.cu ``pad_keys``)."""
+    return max(64, 1 << (max(P, 1) - 1).bit_length())
 
 
 def kept_list_fits(P: int, max_outputs: int) -> bool:
     """Do the sort keys (P padded to a power of two, at least 64) and the
     kept list (min(K, P) boxes of 16 B) fit in one block's shared memory?
     csrc/nms.cu's ``smem_bytes`` without the staged boxes."""
-    npad = max(64, 1 << (max(P, 1) - 1).bit_length())
-    return npad * 8 + min(max_outputs, P) * 16 <= SMEM_LIMIT
+    return pad_keys(P) * 8 + min(max_outputs, P) * 16 <= SMEM_LIMIT
+
+
+def nms_route(P: int, max_outputs: int) -> str:
+    """``"shared"`` when the sort keys and the kept list fit in one block's
+    shared memory beside each other, else ``"global"`` (keys in a global
+    scratch, csrc/nms.cu ``nms_global_kernel``: a tile of keys, then the
+    kept list, in shared memory). Raises ValueError for what neither route
+    runs: a kept list larger than shared memory by itself, or more than
+    :data:`MAX_P` boxes."""
+    K.require(P <= MAX_P, "nms: {} boxes per image exceed the {} the kernel indexes",
+              P, MAX_P)
+    if P <= MAX_BOXES and kept_list_fits(P, max_outputs):
+        return "shared"
+    K.require(min(max_outputs, P) * 16 <= SMEM_LIMIT,
+              "nms: a kept list of {} boxes does not fit in one block's shared memory "
+              "({} bytes)", min(max_outputs, P), SMEM_LIMIT)
+    return "global"
+
+
+def tiled_bitonic_sort(keys: np.ndarray, tile: int = MAX_BOXES) -> np.ndarray:
+    """The sorting network of the global-keys route, pass by pass in numpy:
+    ``keys`` (uint64, a power of two long, at least 64) sorted descending
+    the way ``nms_global_kernel`` does it: every tile of ``tile`` keys
+    bitonic-sorted on its own, in the direction its run has in the whole
+    sequence; then, for each run length k past the tile, the strides >= tile
+    over the whole sequence and the strides < tile tile by tile. Each pass
+    compares positions i and i ^ j and puts the larger first when
+    ``(i & k) == 0``, i the position in the whole sequence."""
+    a = np.array(keys, dtype=np.uint64)
+    n = len(a)
+    tile = min(tile, n)
+
+    def sweep(first, size, k, j):
+        pos = np.arange(first, first + size)
+        lo = pos[(pos & j) == 0]
+        hi = lo + j
+        x, y = a[lo].copy(), a[hi].copy()
+        swap = np.where((lo & k) == 0, x < y, x > y)
+        a[lo[swap]], a[hi[swap]] = y[swap], x[swap]
+
+    for t0 in range(0, n, tile):
+        k = 2
+        while k <= tile:
+            j = k // 2
+            while j >= 1:
+                sweep(t0, tile, k, j)
+                j //= 2
+            k *= 2
+    k = 2 * tile
+    while k <= n:
+        j = k // 2
+        while j >= tile:
+            sweep(0, n, k, j)
+            j //= 2
+        for t0 in range(0, n, tile):
+            j = tile // 2
+            while j >= 1:
+                sweep(t0, tile, k, j)
+                j //= 2
+        k *= 2
+    return a
 
 
 def nms_batched_plain(
@@ -223,6 +303,27 @@ def greedy_iou_tests(boxes, scores, sel_idx, iou_threshold: float = 0.5,
     return tests
 
 
+def _key_scratch(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The 64-bit key scratch of the global-keys route (``kernels.scratch``);
+    raises ValueError when it cannot be allocated."""
+    try:
+        return K.scratch(device, stream, words, torch.int64)
+    except torch.OutOfMemoryError as e:
+        raise ValueError(
+            f"nms: the global-keys route needs {words * 8} bytes of key scratch, "
+            f"which cannot be allocated on {device}") from e
+
+
+def _check_nms(boxes: torch.Tensor, scores: torch.Tensor, max_outputs: int) -> None:
+    K.require(boxes.dim() == 3 and boxes.shape[-1] == 4 and scores.dim() == 2
+              and boxes.shape[:2] == scores.shape,
+              f"nms: boxes [B, P, 4] and scores [B, P] expected, got "
+              f"{tuple(boxes.shape)} / {tuple(scores.shape)}")
+    K.require(max_outputs >= 0, "nms: max_outputs must be >= 0")
+    K.require(scores.device == boxes.device,
+              f"nms: boxes on {boxes.device}, scores on {scores.device}")
+
+
 def nms_select(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -231,16 +332,22 @@ def nms_select(
     score_threshold: float = float("-inf"),
 ):
     """The kernel's own outputs: ``(sel_idx [B, K] int32, sel_scores [B, K]
-    float32)`` for ``boxes [B, P, 4]`` f32 and ``scores [B, P]`` f32. On a
-    CUDA tensor this launches the kernel (or raises); a CPU tensor takes
-    :func:`nms_batched_plain`."""
-    K.require(boxes.dim() == 3 and boxes.shape[-1] == 4 and scores.dim() == 2
-              and boxes.shape[:2] == scores.shape,
-              f"nms: boxes [B, P, 4] and scores [B, P] expected, got "
-              f"{tuple(boxes.shape)} / {tuple(scores.shape)}")
-    K.require(max_outputs >= 0, "nms: max_outputs must be >= 0")
-    K.require(scores.device == boxes.device,
-              f"nms: boxes on {boxes.device}, scores on {scores.device}")
+    float32)`` for ``boxes [B, P, 4]`` f32 and ``scores [B, P]`` f32,
+    through the operator ``multibox_torch::nms_select``
+    (:func:`nms_select_op`). On a CUDA tensor this launches the kernel (or
+    raises); a CPU tensor takes :func:`nms_batched_plain`."""
+    return nms_select_op(boxes, scores, int(max_outputs), float(iou_threshold),
+                         float(score_threshold))
+
+
+@torch.library.custom_op("multibox_torch::nms_select", mutates_args=())
+def nms_select_op(boxes: torch.Tensor, scores: torch.Tensor, max_outputs: int,
+                  iou_threshold: float, score_threshold: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator behind :func:`nms_select`: the launch on the route
+    :func:`nms_route` picks (counted here, so an exported program counts
+    its launches when it runs), the plain version for a CPU tensor."""
+    _check_nms(boxes, scores, max_outputs)
     if not boxes.is_cuda:
         return nms_batched_plain(
             boxes, scores, max_outputs, iou_threshold, score_threshold)
@@ -249,12 +356,7 @@ def nms_select(
               f"nms: float32 only, got {boxes.dtype} / {scores.dtype}")
     K.require(boxes.is_contiguous() and scores.is_contiguous(),
               "nms: tensors must be contiguous")
-    K.require(P <= MAX_BOXES,
-              f"nms: {P} boxes per image exceed the {MAX_BOXES} whose sort keys "
-              "fit one block's shared memory")
-    K.require(kept_list_fits(P, max_outputs),
-              f"nms: a kept list of {min(max_outputs, P)} boxes does not fit beside "
-              f"the sort keys of {P} boxes in one block's shared memory")
+    route = nms_route(P, max_outputs)
     sel_idx = torch.empty((B, max_outputs), dtype=torch.int32, device=boxes.device)
     sel_scores = torch.empty((B, max_outputs), dtype=torch.float32,
                              device=boxes.device)
@@ -262,13 +364,24 @@ def nms_select(
         sel_idx.fill_(-1)
         sel_scores.fill_(-1.0)
     elif B > 0 and max_outputs > 0:
+        stream = K.current_stream_ptr()
+        scratch = (_key_scratch(boxes.device, stream, B * pad_keys(P)).data_ptr()
+                   if route == "global" else None)
         err = K.load_library().mbx_nms(
             boxes.data_ptr(), scores.data_ptr(), sel_idx.data_ptr(), sel_scores.data_ptr(),
-            B, P, max_outputs, float(iou_threshold), *threshold_split(float(iou_threshold)),
-            float(score_threshold), K.current_stream_ptr())
+            scratch, B, P, max_outputs, iou_threshold, *threshold_split(iou_threshold),
+            score_threshold, stream)
         K.check_launch(err, "mbx_nms")
         K.LAUNCHES["nms"] += 1
     return sel_idx, sel_scores
+
+
+@nms_select_op.register_fake
+def _nms_select_fake(boxes, scores, max_outputs, iou_threshold, score_threshold):
+    _check_nms(boxes, scores, max_outputs)
+    B = scores.shape[0]
+    return (boxes.new_empty((B, max_outputs), dtype=torch.int32),
+            boxes.new_empty((B, max_outputs), dtype=torch.float32))
 
 
 def nms_cuda_batched(

@@ -163,9 +163,12 @@ def test_unknown_modes_fail_loudly(world):
     _, cfg = both_cfgs(quantize="int4")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         tinf.make_detect_body(cfg, world["priors"], device="cpu")
+    # int8 is ported: the body applies prepared {"params", "quant"}
+    # variables (tests/test_torch_quant.py), and says so when given others
     _, cfg = both_cfgs(quantize="int8")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tinf.make_detect_fn(cfg, world["priors"], device="cpu")
+    detect = tinf.make_detect_fn(cfg, world["priors"], device="cpu")
+    with pytest.raises(KeyError, match="quant"):
+        detect(world["tvars_spread"], world["x"])
 
 
 # ------------------------------------------------------------ detect steps

@@ -13,9 +13,14 @@ import torch
 
 from multibox_tpu_torch import inference as tinf
 from multibox_tpu_torch import priors as tpriors
+from multibox_tpu_torch import quantize as tquantize
+from multibox_tpu_torch import serve as tserve
+from multibox_tpu_torch import serving as tserving
 from multibox_tpu_torch.cli import detect as cli_detect
 from multibox_tpu_torch.cli import evaluate as cli_evaluate
+from multibox_tpu_torch.cli import export as cli_export
 from multibox_tpu_torch.cli import priors as cli_priors
+from multibox_tpu_torch.cli import serve as cli_serve
 from multibox_tpu_torch.cli import train as cli_train
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.device import resolve_device
@@ -121,13 +126,26 @@ def CheckpointManager_restore():
         lambda: cli_detect.main(["--tfrecords", "unused", "--priors", "unused",
                                  "--checkpoint_path", "unused", "--output", "unused.pkl"]),
         lambda: cli_evaluate.main(["--tfrecords", "unused", "--detections", "unused.pkl"]),
+        lambda: tinf.build_model(Config(**SMALL), 4, folded=True, quantize="int8"),
+        lambda: tinf.make_detect_body(Config(**SMALL, quantize="int8"), PRIORS),
+        lambda: tquantize.prepare_quantized_variables(
+            Config(**SMALL), {"params": {}}, [np.zeros((1, 75, 75, 3), np.uint8)]),
+        lambda: cli_export.export_detector(Config(**SMALL), None, {}, PRIORS, "unused", [1],
+                                           None),
+        lambda: cli_export.main(["--checkpoint_path", "unused", "--priors", "unused",
+                                 "--output_dir", "unused"]),
+        lambda: tserving.load_exported("unused"),
+        lambda: tserve.make_server("unused"),
+        lambda: cli_serve.main(["--export_dir", "unused"]),
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
          "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
          "detector", "detector_mobilenet", "detector_ssd", "create_train_state", "make_train_step",
          "make_augmented_train_step", "train", "checkpoint_restore", "train_from_batches",
          "evaluate_state", "generate_priors_kmeans", "run_detection", "cli_priors",
-         "cli_train", "cli_detect", "cli_evaluate"],
+         "cli_train", "cli_detect", "cli_evaluate", "build_model_int8", "make_detect_body_int8",
+         "prepare_quantized_variables", "export_detector", "cli_export", "load_exported",
+         "make_server", "cli_serve"],
 )
 def test_entry_points_raise_without_cuda_when_device_is_unset(call):
     needs_no_cuda()
@@ -206,14 +224,16 @@ def _function(module, name):
 
 @pytest.mark.parametrize(
     "module,name",
-    [(nms_kernel, "nms_select"), (fused_matmul, "fused_matmul_bias_relu"),
+    [(nms_kernel, "nms_select_op"), (fused_matmul, "fused_matmul_op"),
      (box_kernel, "decode_boxes_cuda"), (box_kernel, "encode_boxes_cuda"),
      (match_kernel, "greedy_match_cuda")],
     ids=["nms", "fused_matmul", "box_decode", "box_encode", "match"],
 )
 def test_wrappers_have_no_fallback_and_count_their_launches(module, name):
     """No ``try`` around the launch, the plain version only behind an
-    ``is_cuda`` test, one count beside the launch."""
+    ``is_cuda`` test, one count beside the launch. For B1, B2's forward and
+    B3a the launch is inside the custom operator's implementation (so that
+    an exported program counts its launches when it runs)."""
     fn = _function(module, name)
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     src = ast.unparse(fn)
@@ -239,6 +259,28 @@ def test_launch_counts_do_not_move_on_the_cpu():
         "box_encode": 0, "match": 0}
     assert kernels.resolve_use_pallas(None, torch.zeros(1)) is False
     assert kernels.resolve_use_pallas(True, torch.zeros(1)) is True
+
+
+def test_kernel_operators_are_registered_with_their_output_shapes():
+    """B1, B2's forward and B3a are ``multibox_torch::`` operators (so that
+    ``torch.export`` records one call each); traced on fake tensors, their
+    registered shapes and types come out without a launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    for op in ("nms_select", "fused_matmul_bias_relu", "decode_boxes"):
+        assert hasattr(torch.ops.multibox_torch, op)
+    with FakeTensorMode():
+        idx, sc = torch.ops.multibox_torch.nms_select(
+            torch.empty(3, 18936, 4), torch.empty(3, 18936), 100, 0.5, float("-inf"))
+        y = torch.ops.multibox_torch.fused_matmul_bias_relu(
+            torch.empty(32, 6144, dtype=torch.bfloat16), torch.empty(6144, 1024, dtype=torch.bfloat16),
+            torch.empty(1024), True)
+        boxes = torch.ops.multibox_torch.decode_boxes(torch.empty(2, 9, 4), torch.empty(9, 4), True)
+    assert (idx.shape, idx.dtype, sc.shape, sc.dtype) == ((3, 100), torch.int32, (3, 100),
+                                                          torch.float32)
+    assert (y.shape, y.dtype) == ((32, 1024), torch.bfloat16)
+    assert boxes.shape == (2, 9, 4)
+    assert kernels.launch_counts()["nms"] == 0
 
 
 def test_config_is_the_same_surface_as_the_jax_package(tmp_path):
@@ -309,9 +351,18 @@ def test_kernels_match_their_plain_versions_on_the_card():
         idx, sc = nms_kernel.nms_select(b, s, k, 0.5, thr)
         want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, thr)
         assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    # a kept list larger than shared memory by itself is refused; one that
+    # does not fit beside the keys takes the global-keys route
     with pytest.raises(ValueError, match="kept list"):
-        nms_kernel.nms_select(torch.zeros(1, 9468, 4, device=dev),
-                              torch.zeros(1, 9468, device=dev), 9468)
+        nms_kernel.nms_select(torch.zeros(1, 20000, 4, device=dev),
+                              torch.zeros(1, 20000, device=dev), 20000)
+    for P, k in ((9468, 9468), (18936, 100), (40000, 200)):
+        assert nms_kernel.nms_route(P, k) == "global"
+        b = t(np.sort(rng.uniform(0, 1, (2, P, 2, 2)), axis=2).reshape(2, P, 4)).to(dev)
+        s = t(rng.uniform(0, 1, (2, P))).to(dev)
+        idx, sc = nms_kernel.nms_select(b, s, k, 0.5, 0.05)
+        want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, 0.05)
+        assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
     x, w, b = (t(rng.normal(0, 1, s)).to(dev) for s in ((33, 130), (130, 70), (70,)))
     torch.testing.assert_close(
         fused_matmul.fused_matmul_bias_relu(x, w, b, True),

@@ -482,6 +482,70 @@ def test_nms_kept_list_fits_beside_the_keys(P, K, fits):
     assert nms_kernel.kept_list_fits(P, K) is fits
 
 
+@pytest.mark.parametrize("P,K,route", [
+    (256, 100, "shared"), (16384, 100, "shared"), (16384, 5312, "shared"),
+    (16385, 100, "global"), (18936, 100, "global"), (40000, 200, "global"),
+    (16384, 5313, "global"), (9468, 9468, "global"), (13504, 13504, "global"),
+    (40000, 13504, "global"), (13505, 13505, None), (40000, 20000, None),
+    (nms_kernel.MAX_P + 1, 100, None)],
+    ids=lambda v: str(v))
+def test_nms_route_at_the_boundaries(P, K, route):
+    """The wrapper's route: the shared one while the keys (P padded to a
+    power of two) and the kept list fit beside each other; else the
+    global-keys route while the kept list alone fits (16 B a box in 211 KiB,
+    13,504 boxes); else a refusal, as for more boxes than the kernel
+    indexes."""
+    if route is None:
+        with pytest.raises(ValueError):
+            nms_kernel.nms_route(P, K)
+    else:
+        assert nms_kernel.nms_route(P, K) == route
+
+
+@pytest.mark.parametrize("n,tile", [(64, 64), (256, 64), (1024, 128), (4096, 256)])
+def test_tiled_bitonic_sort_is_the_descending_order(n, tile):
+    """The global-keys route's network (tiles sorted on their own, then the
+    merges of larger strides over the whole sequence and the smaller ones
+    tile by tile) sorts descending: random 64-bit keys with dead (0) ones
+    and repeats, and the keys of real scores."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**63, n, dtype=np.uint64) * np.uint64(2)
+    keys[rng.random(n) < 0.2] = 0
+    keys[: n // 8] = keys[n // 8: n // 4]
+    np.testing.assert_array_equal(nms_kernel.tiled_bitonic_sort(keys, tile),
+                                  np.sort(keys)[::-1])
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    order = nms_kernel._candidates(scores, 0.1)
+    bits = (scores + np.float32(0)).view(np.uint32)
+    live = ((bits | np.uint32(0x80000000)).astype(np.uint64) << np.uint64(32)) | \
+        (~np.arange(n, dtype=np.uint32)).astype(np.uint64)
+    live[scores < np.float32(0.1)] = 0
+    got = nms_kernel.tiled_bitonic_sort(live, tile)
+    assert [int(~np.uint32(k & np.uint64(0xFFFFFFFF))) for k in got[:len(order)]] == \
+        order.tolist()
+
+
+def test_plain_nms_at_the_flip_tta_candidate_count_is_the_jax_spec():
+    """P = 18,936 (the SSD prior count twice, as flip TTA hands it over, the
+    second half the first's boxes mirrored): the plain version, and the
+    kernel's algorithm in numpy, exactly the JAX package's ``_nms_jnp``."""
+    rng = np.random.default_rng(18936)
+    half = random_nms_boxes(rng, 2, 9468)
+    mirrored = np.stack([half[..., 0], 1 - half[..., 3], half[..., 2], 1 - half[..., 1]], -1)
+    boxes = np.ascontiguousarray(np.concatenate([half, mirrored], axis=1))
+    scores = rng.uniform(0, 1, (2, 18936)).astype(np.float32)
+    got_idx, got_scores = nms_kernel.nms_batched_plain(
+        torch.from_numpy(boxes), torch.from_numpy(scores), 100, 0.5, 0.05)
+    _, ref_scores, ref_idx, ref_num = _jax_nms(100)(boxes, scores, np.float32(0.5),
+                                                    np.float32(0.05))
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(got_scores.numpy(), np.asarray(ref_scores))
+    np.testing.assert_array_equal((got_idx >= 0).sum(1).numpy(), np.asarray(ref_num))
+    emu_idx, _, _ = nms_kernel.sorted_scan_emulation(boxes, scores, 100, 0.5, 0.05)
+    np.testing.assert_array_equal(emu_idx, got_idx.numpy())
+    assert nms_kernel.nms_route(18936, 100) == "global"
+
+
 # ------------------------------------------------------------ B3: the plan
 
 @pytest.mark.parametrize("a_shape,prior_shape", [

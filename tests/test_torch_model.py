@@ -167,8 +167,15 @@ def test_final_endpoint_cuts_the_network_short(nets):
 
 
 def test_unported_variants_say_so():
-    with pytest.raises(NotImplementedError, match="int8"):
-        inception_v3.InceptionV3(quantize="int8", folded=True)
+    # int8 is ported (tests/test_torch_quant.py holds it to the JAX
+    # package): every one of the 94 units becomes a QuantConv, on the
+    # folded variant only
+    from multibox_tpu_torch.models.quant import QuantConv
+
+    net = inception_v3.InceptionV3(quantize="int8", folded=True)
+    assert sum(isinstance(m, QuantConv) for m in net.modules()) == 94
+    with pytest.raises(ValueError, match="folded"):
+        inception_v3.InceptionV3(quantize="int8")
     # the SSD head and the MobileNetV2 backbone are ported: both build and
     # give the JAX package's output shapes (tests/test_torch_ssd.py and
     # tests/test_torch_mobilenet.py hold their values to it)
