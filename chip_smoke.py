@@ -19,6 +19,20 @@ read just after) and that what comes out is right, stage by stage:
   head through the matmul kernel forward and backward, RMSProp, EMA,
   augmentation), 12 steps, then resumed from its checkpoint to 16; one
   batch overfitted for 40 steps; stage times of a step;
+- data: the data-to-training path at configs/voc_train.yaml's width, host
+  code around one kernel: 64 JPEG files at VOC's sizes and a COCO file of
+  their boxes from the seed → ``cli.dataset.main`` (JPEG records; raw
+  canvases at the train canvas, 343 px, in 2 shards), every record parsed
+  back to its annotation → the native tfrecord reader (``data._native``,
+  built with g++ at first use) byte-equal to the Python reader, each
+  reader's MB/s alone, ``DetectionDataset``'s ms a batch of 32 with the
+  native reader and, in turns with it, with the Python reader put in its
+  place → the native JPEG decoder against PIL (where libjpeg's
+  headers are) → ``cli.doctor.main(["--json"])``, every check ok →
+  ``cli.visualize`` (detect from a checkpoint: B1 once a batch) and
+  ``cli.visualize_inputs`` where matplotlib is; what did not run is named
+  on the phase line with its reason (the decoder, the visualize CLIs, the
+  checkpoint import without TensorFlow);
 - cli: the command-line path a user runs, through each CLI's ``main``:
   tfrecords written from the seed (``image/raw`` canvases, plus 8 JPEG
   records where PIL is installed), ``cli.priors`` (k-means, 256 priors),
@@ -100,6 +114,10 @@ as shipped, the gap is reported); launch counts exact per path. Phase
 serve: the exported programs bitwise equal to the live function; the int8
 routes exactly the int64 reference; the NMS kernel exact at P = 18,936 and
 40,000 on its global-keys route (kernels phase and SSD with flip TTA).
+Phase data: records equal to their annotations (boxes within 1e-6, the
+COCO file's float64 pixels back to float32), the two readers' records
+byte-equal, the native JPEG decode within a mean absolute difference of
+1.0 of PIL's (the JAX package's bound), launch counts exact.
 """
 
 from __future__ import annotations
@@ -107,6 +125,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1227,6 +1246,254 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
 
 
 # --------------------------------------------------------------------------
+# the data path: images → records → the native reader → the tools
+# --------------------------------------------------------------------------
+
+
+def photo(rng, h, w):
+    """A photo-like uint8 image (gradients, blocks, noise) and its 1-16
+    boxes: the rectangles' corners, normalized."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([200 * y / h, 200 * x / w, 110 + 80 * np.sin(x / 9.0 + y / 13.0)], -1)
+    boxes = random_boxes(rng, (int(rng.integers(1, 17)),), min_size=0.1)
+    for y0, x0, y1, x1 in boxes:
+        img[int(y0 * h):int(y1 * h), int(x0 * w):int(x1 * w)] = rng.integers(60, 256, 3)
+    img += rng.normal(0, 5, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8), boxes
+
+
+def read_all(paths, use_native):
+    from multibox_tpu_torch.data.tfrecord import read_records
+
+    return list(read_records(paths, use_native=use_native))
+
+
+def phase_data(rng, card_line, num_images=64):
+    """The data-to-training path at configs/voc_train.yaml's width: JPEG
+    files and a COCO file → ``cli.dataset.main`` (JPEG records; raw canvases
+    at the train canvas in 2 shards) → the native reader against the Python
+    one → ``DetectionDataset`` → the native JPEG decoder → ``cli.doctor`` →
+    ``cli.visualize`` (B1 once a batch) and ``cli.visualize_inputs``.
+    Returns the kernels' launch counts of the phase."""
+    import io
+    from importlib.util import find_spec
+
+    from PIL import Image
+
+    from multibox_tpu_torch.cli import dataset as cli_dataset
+    from multibox_tpu_torch.cli import doctor as cli_doctor
+    from multibox_tpu_torch.config import parse_config_file
+    from multibox_tpu_torch.data import _native
+    from multibox_tpu_torch.data.example_proto import parse_detection_example
+    from multibox_tpu_torch.data.jpeg import decode_jpeg
+    from multibox_tpu_torch.data.pipeline import DetectionDataset
+    from multibox_tpu_torch.data.tfrecord import read_records
+    from multibox_tpu_torch.priors import save_priors
+
+    root = os.path.join(".work", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "images"))
+    cfg = parse_config_file("configs/voc_train.yaml")
+    canvas = max(int(cfg.input_size * 1.15), cfg.input_size)
+    out = {"phase": "data", "card": card_line, "machine": _native.machine(),
+           "config": f"configs/voc_train.yaml (inception_v3 {cfg.input_size}, "
+                     f"batch {cfg.batch_size}, G={cfg.max_num_bboxes}, a {canvas}-px canvas)"}
+    quiet = contextlib.redirect_stdout(sys.stderr)  # the CLIs' own prints
+
+    # 1. JPEG files at VOC's sizes and a COCO file of their boxes
+    coco = {"images": [], "annotations": [], "categories": [{"id": 1}]}
+    want = {}
+    for i in range(num_images):
+        h, w = (375, 500) if i % 2 else (500, 375)
+        img, boxes = photo(rng, h, w)
+        Image.fromarray(img).save(os.path.join(root, "images", f"im{i}.jpg"), quality=90)
+        coco["images"].append({"id": i, "file_name": f"im{i}.jpg", "height": h, "width": w})
+        for y0, x0, y1, x1 in boxes.astype(np.float64):
+            coco["annotations"].append({"image_id": i, "category_id": 1, "iscrowd": 0,
+                                        "bbox": [x0 * w, y0 * h, (x1 - x0) * w, (y1 - y0) * h]})
+        want[str(i)] = boxes
+    with open(os.path.join(root, "coco.json"), "w") as f:
+        json.dump(coco, f)
+
+    # 2. records through the dataset CLI, parsed back to their annotations
+    runs = {"jpeg": [], "raw": ["--store_raw_canvas", str(canvas), "--num_shards", "2"]}
+    paths, seconds = {}, {}
+    for name, extra in runs.items():
+        t0 = time.perf_counter()
+        with quiet:
+            if cli_dataset.main(["--annotations", os.path.join(root, "coco.json"), "--coco",
+                                 "--image_root", os.path.join(root, "images"),
+                                 "--output_prefix", os.path.join(root, name, "train")] + extra):
+                raise AssertionError(f"dataset CLI failed ({name})")
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = sorted(os.path.join(root, name, f) for f in os.listdir(
+            os.path.join(root, name)))
+        parsed = {}
+        for rec in read_all(paths[name], None):
+            ex = parse_detection_example(rec)
+            parsed[ex["image_id"]] = ex
+        if sorted(parsed) != sorted(want):
+            raise AssertionError(f"dataset CLI ({name}): ids {sorted(parsed)[:4]}")
+        for image_id, ex in parsed.items():
+            with open(os.path.join(root, "images", f"im{image_id}.jpg"), "rb") as f:
+                jpeg = f.read()
+            if (ex["image_bytes"] != jpeg or list(ex["labels"]) != [1] * len(want[image_id])
+                    or not np.allclose(ex["boxes"], want[image_id], rtol=0, atol=1e-6)
+                    or (name == "raw") != ("raw" in ex)
+                    or (name == "raw" and ex["raw"].shape != (canvas, canvas, 3))):
+                raise AssertionError(f"dataset CLI ({name}): record {image_id} differs "
+                                     "from its annotation")
+    out.update({"images": {"count": num_images, "sizes": "500x375 and 375x500, JPEG q90",
+                           "boxes": len(coco["annotations"])},
+                "dataset_cli_seconds": seconds,
+                "record_files": {k: len(v) for k, v in paths.items()},
+                "record_bytes": {k: sum(os.path.getsize(p) for p in v) for k, v in paths.items()},
+                "records_parse_back": True})
+
+    # 3. the native reader: byte-equal to the Python reader, then each alone
+    for name in paths:
+        if read_all(paths[name], None) != read_all(paths[name], False):
+            raise AssertionError(f"native reader differs from the Python reader ({name})")
+    data_mb = sum(map(len, read_all(paths["raw"], False))) / 1e6
+    rates = {}
+    for label, use_native, reps in (("native", None, 3), ("python", False, 1)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            read_all(paths["raw"], use_native)
+            times.append(time.perf_counter() - t0)
+        rates[label] = data_mb / statistics.median(times)
+    def dataset_times():
+        """First batch (s) and ms a batch after it, as the train CLI reads."""
+        stream = iter(DetectionDataset(paths["raw"], batch_size=cfg.batch_size,
+                                       canvas_size=canvas, max_num_bboxes=cfg.max_num_bboxes,
+                                       shuffle=True, repeat=True, seed=cfg.seed))
+        t0 = time.perf_counter()
+        next(stream)
+        t1 = time.perf_counter()
+        for _ in range(6):
+            next(stream)
+        ms = (time.perf_counter() - t1) * 1e3 / 6
+        stream.close()
+        return t1 - t0, ms
+
+    # the default (native) reader, and the Python one put in its place for
+    # the comparison only, in turns: native, Python, Python, native
+    from multibox_tpu_torch.data import pipeline
+
+    times = {"native": [], "python": []}
+    for label in ("native", "python", "python", "native"):
+        if label == "python":
+            pipeline.read_records = functools.partial(read_records, use_native=False)
+        try:
+            times[label].append(dataset_times())
+        finally:
+            pipeline.read_records = read_records
+    out.update({"readers_byte_equal": True, "reader_mb": data_mb,
+                "native_reader_MB_s": rates["native"], "python_reader_MB_s": rates["python"],
+                "detection_dataset_first_batch_s": {k: [t[0] for t in v]
+                                                    for k, v in times.items()},
+                "detection_dataset_ms_per_batch": {k: [t[1] for t in v]
+                                                   for k, v in times.items()}})
+
+    # 4. the native JPEG decoder (opt-in) against PIL, where libjpeg's headers are
+    if _native.jpeg_headers_present():
+        jpegs = []
+        for i in range(num_images):
+            with open(os.path.join(root, "images", f"im{i}.jpg"), "rb") as f:
+                jpegs.append(f.read())
+        diffs = [float(np.abs(decode_jpeg(d, backend="native").astype(int)
+                              - decode_jpeg(d).astype(int)).mean()) for d in jpegs]
+        if max(diffs) >= 1.0:
+            raise AssertionError(f"native JPEG decode differs from PIL's: {max(diffs)}")
+        ms = {}
+        for backend in ("native", "pil"):
+            for label, size in (("full", None), (f"canvas_{canvas}", canvas)):
+                t0 = time.perf_counter()
+                for d in jpegs:
+                    decode_jpeg(d, canvas=size, backend=backend)
+                ms[f"{backend}_{label}"] = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+        out["jpeg_decoder"] = {"built": True, "max_mean_abs_diff_vs_pil": max(diffs),
+                               "ms_per_image": ms}
+    else:
+        out["jpeg_decoder"] = ("not run: jpeglib.h is absent on this machine, so the "
+                               "native JPEG decoder was not built")
+
+    # 5. the doctor, every check on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_doctor.main(["--json"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not all(c["status"] == "ok" for c in report["checks"]):
+        raise AssertionError(f"doctor: {report}")
+    out["doctor"] = {c["name"]: c["detail"] for c in report["checks"]}
+
+    # 6. the visualize CLIs (B1 once a detect batch) where matplotlib is
+    kernels.reset_launch_counts()
+    if find_spec("matplotlib") is not None:
+        from multibox_tpu_torch.cli import visualize as cli_visualize
+        from multibox_tpu_torch.cli import visualize_inputs as cli_visualize_inputs
+        from multibox_tpu_torch.inference import build_model
+
+        priors_path = os.path.join(root, "priors.pkl")
+        save_priors(random_boxes(rng, (cfg.num_priors,), min_size=0.05), priors_path)
+        logdir = os.path.join(root, "logdir")
+        model = build_model(cfg, cfg.num_priors, device=DEV)
+        CheckpointManager(logdir).save(1, train_state.create_train_state(
+            cfg, model, 0, cfg.num_priors, device=DEV), force=True)
+        del model
+        t0 = time.perf_counter()
+        with quiet:
+            if cli_visualize.main(["--tfrecords", *paths["jpeg"], "--priors", priors_path,
+                                   "--checkpoint_path", logdir, "--output_dir",
+                                   os.path.join(root, "pred"), "--max_images", "8",
+                                   "--config", "configs/voc_train.yaml"]):
+                raise AssertionError("visualize CLI failed")
+        t1 = time.perf_counter()
+        counts = kernels.launch_counts()
+        with quiet:
+            if cli_visualize_inputs.main(["--tfrecords", *paths["raw"], "--output_dir",
+                                          os.path.join(root, "inputs"), "--priors",
+                                          priors_path, "--config", "configs/voc_train.yaml"]):
+                raise AssertionError("visualize_inputs CLI failed")
+        t2 = time.perf_counter()
+        pngs = {d: len(os.listdir(os.path.join(root, d))) for d in ("pred", "inputs")}
+        if pngs != {"pred": 8, "inputs": cfg.batch_size}:
+            raise AssertionError(f"visualize PNGs {pngs}")
+        out["visualize"] = {"pngs": pngs, "visualize_seconds": t1 - t0,
+                            "visualize_inputs_seconds": t2 - t1}
+    else:
+        counts = kernels.launch_counts()
+        out["visualize"] = "not run: matplotlib is absent on this machine"
+    batches = -(-num_images // cfg.batch_size) if isinstance(out["visualize"], dict) else 0
+    want_counts = {"nms": batches, "fused_matmul": 0, "fused_matmul_backward": 0,
+                   "box_decode": 0, "box_encode": 0, "match": 0}
+    if counts != want_counts:
+        raise AssertionError(f"data launch counts {counts}, expected {want_counts}")
+
+    # 7. the checkpoint import needs TensorFlow
+    if find_spec("tensorflow") is None:
+        out["tf_import"] = "not run: TensorFlow is absent on this machine"
+    else:
+        import tensorflow as tf
+
+        from multibox_tpu_torch.models import tf_import
+
+        from multibox_tpu_torch.inference import build_model
+
+        variables = build_model(cfg, cfg.num_priors, device="cpu").init_variables(
+            torch.Generator().manual_seed(0))
+        keras_model = tf.keras.applications.InceptionV3(
+            weights=None, include_top=False, input_shape=(cfg.input_size, cfg.input_size, 3))
+        tf_import.import_keras_inception_v3(keras_model, variables)
+        out["tf_import"] = "keras Inception-v3 (random weights) imported"
+    shutil.rmtree(root, ignore_errors=True)  # a 350 MB checkpoint among it
+    out.update({"ok": True, "launches": counts})
+    emit(out)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # the command-line path: priors → train → detect → evaluate
 # --------------------------------------------------------------------------
 
@@ -1407,7 +1674,8 @@ def phase_cli(rng, card_line):
     t1 = time.perf_counter()
     for _ in range(6):
         next(stream)
-    out.update({"data_first_batch_s": t1 - t0,
+    out.update({"data_reader": "native (read_records' default)",
+                "data_first_batch_s": t1 - t0,
                 "data_ms_per_batch": (time.perf_counter() - t1) * 1e3 / 6})
     stream.close()
     out.update(hungarian_on_the_card(batch["boxes"], batch["num_boxes"], priors))
@@ -2242,6 +2510,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts = phase_train(rng, card_line, args.profile)
     torch.cuda.empty_cache()
+    data_counts = phase_data(rng, card_line)
+    torch.cuda.empty_cache()
     cli_counts, records = phase_cli(rng, card_line)
     torch.cuda.empty_cache()
     ssd_counts, ssd_rows = phase_ssd(rng, gen, card_line, records)
@@ -2251,10 +2521,12 @@ def main() -> int:
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the six paths: detect (B1, B2, B3a), train (B2, B3b, B4),
-    # cli (B1), ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve
-    # (B1, B2, B3a inside the exported programs; B1 with flip TTA)
-    paths = (counts, train_counts, cli_counts, ssd_counts, mobilenet_counts, serve_counts)
+    # launches on the seven paths: detect (B1, B2, B3a), train (B2, B3b, B4),
+    # data (B1 in visualize), cli (B1), ssd (B1, B4), mobilenet (B1, B2, B3a,
+    # B3b, B4) and serve (B1, B2, B3a inside the exported programs; B1 with
+    # flip TTA)
+    paths = (counts, train_counts, data_counts, cli_counts, ssd_counts, mobilenet_counts,
+             serve_counts)
     for e in entries + [backward]:
         e["launches"] = sum(c.get(e["name"], 0) for c in paths)
     # the new paths' shapes beside each kernel's main row

@@ -1,4 +1,5 @@
-"""Host-side JPEG decode behind a single API (PIL).
+"""Host-side JPEG decode behind a single API (PIL, or the native decoder on
+request).
 
 Own copy of the JAX package's ``data/jpeg.py`` without its TensorFlow
 backend (golden tests only there). The decode is entropy-coded and
@@ -29,8 +30,11 @@ def decode_jpeg(
     """JPEG bytes → RGB uint8 array ``[H, W, 3]`` (or ``[canvas, canvas, 3]``).
 
     backend:
-      "auto"/"pil" — PIL (libjpeg-turbo).
-      "native" — the JAX package's C++ decoder, not ported yet: raises.
+      "auto"/"pil" — PIL (libjpeg-turbo), the production path; "auto"
+        never switches implementation on what happens to be built.
+      "native" — explicit opt-in to the C++ decoder (``data._native``:
+        DCT-scaled decode + plain bilinear canvas resize, not PIL's; built
+        at first use, raises without libjpeg's headers).
 
     draft: with a ``canvas``, enable libjpeg DCT-scaled decode (PIL draft
       mode): the image is decoded at the nearest ≥canvas power-of-two
@@ -38,9 +42,9 @@ def decode_jpeg(
       from the full decode, so this is a training input option.
     """
     if backend == "native":
-        raise NotImplementedError(
-            "backend='native': the C++ JPEG decoder is not ported yet; "
-            "see ROADMAP.md, queue 1, item 8")
+        from multibox_tpu_torch.data import _native
+
+        return _native.decode_jpeg(data, canvas)
     if backend not in ("auto", "pil"):
         raise ValueError(f"unknown JPEG backend: {backend!r}")
     from PIL import Image

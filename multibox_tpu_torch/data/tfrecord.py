@@ -7,9 +7,9 @@ The masked CRC is ``rot(crc32c(x), 15) + 0xa282ead8`` (TF convention).
 The port's own copy of the JAX package's ``data/tfrecord.py``: the runtime
 needs no TensorFlow to read the reference's data files. The CRC of a long
 record is computed in 64-byte lanes with numpy, a few array passes in
-place of an interpreter step per byte, with the byte loop's value. That
-package's C++ reader (mmap + threaded prefetch) is not ported yet:
-``use_native=True`` raises.
+place of an interpreter step per byte, with the byte loop's value.
+:func:`read_records` takes the C++ reader (``data._native``: mmap, a reader
+thread, hardware CRC) unless asked for the Python one.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import struct
 from typing import Iterator, Optional
 
 import numpy as np
+
+from multibox_tpu_torch.data import _native
 
 _MASK_DELTA = 0xA282EAD8
 
@@ -175,16 +177,18 @@ class TFRecordReader:
 def read_records(
     paths, verify_crc: bool = True, use_native: Optional[bool] = None
 ) -> Iterator[bytes]:
-    """Iterate records across files with the Python reader.
+    """Iterate records across files.
 
-    ``use_native=True`` asks for the JAX package's C++ reader, which is not
-    ported yet, and raises; ``None`` and ``False`` read in Python. Both
-    readers yield the same records."""
-    if use_native:
-        raise NotImplementedError(
-            "use_native=True: the C++ tfrecord reader is not ported yet; "
-            "see ROADMAP.md, queue 1, item 8")
+    ``use_native=None`` (the default) or ``True`` reads with the C++ reader,
+    built at first use; a failed build or load raises, it never gives way
+    to Python. ``False`` reads in Python. Both readers yield the same
+    records in the same order and raise the same errors (a corrupt CRC, a
+    truncated record, the ``OSError`` of a file that cannot be opened)."""
     if isinstance(paths, (str, os.PathLike)):
         paths = [paths]
+    paths = [os.fspath(p) for p in paths]
+    if use_native is None or use_native:
+        yield from _native.read_records(paths, verify_crc=verify_crc)
+        return
     for path in paths:
-        yield from TFRecordReader(str(path), verify_crc=verify_crc)
+        yield from TFRecordReader(path, verify_crc=verify_crc)

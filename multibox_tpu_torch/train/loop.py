@@ -13,8 +13,7 @@ step → metrics, checkpoints and periodic eval.
   stream of host batches. With ``eval_tfrecords`` the loop runs detection
   and AP over them every ``eval_every_steps`` steps.
 - One process, one device: the JAX package's multi-device and multi-host
-  data parallelism is not ported yet (ROADMAP.md, queue 1, item 18), nor
-  its slim/keras restore (item 15).
+  data parallelism is not ported yet (ROADMAP.md, queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -106,13 +105,37 @@ _BACKBONE_SCOPES = ("InceptionV3", "MobileNetV2")
 
 
 def _restore_pretrained(state: TrainState, path: str, device) -> TrainState:
-    """Warm-start the backbone from another run of this package (a logdir
-    with checkpoints). The slim and keras formats are not ported yet."""
+    """Restore a pretrained backbone with the head scopes excluded (the
+    reference's behaviour, SURVEY.md §3.1). Three source formats:
+
+    - a logdir of another run of this package: the warm start below;
+    - a keras ``.h5`` / ``.keras`` file (``models.tf_import``);
+    - otherwise a tf-slim checkpoint prefix (``models.tf_import``).
+
+    The last two need TensorFlow. The backbone's params and statistics are
+    replaced, the EMA params become a copy of the params, and the head and
+    the optimizer stay as initialized."""
     if os.path.isdir(path) and CheckpointManager(path).latest_step() is not None:
         return _warm_start_from_logdir(state, path, device)
-    raise NotImplementedError(
-        f"pretrained_model={path!r}: restoring slim or keras checkpoints "
-        "(models/tf_import) is not ported yet; see ROADMAP.md, queue 1, item 15")
+    from multibox_tpu_torch.models import tf_import
+
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    if path.endswith((".h5", ".keras")):
+        tf = tf_import.require_tensorflow("reading a keras model file")
+        variables = tf_import.import_keras_inception_v3(tf.keras.models.load_model(path),
+                                                        variables)
+    else:
+        variables = tf_import.import_slim_checkpoint(path, variables)
+    with torch.no_grad():
+        for dst, src in ((state.params, variables["params"]),
+                         (state.batch_stats, variables["batch_stats"])):
+            for k, v in dst.items():
+                if src[k] is not v:
+                    v.copy_(src[k])
+        for k, v in state.params.items():
+            state.ema_params[k].copy_(v)
+    log.info("restored pretrained backbone from %s", path)
+    return state
 
 
 def _warm_start_from_logdir(state: TrainState, path: str, device) -> TrainState:

@@ -22,6 +22,8 @@ from multibox_tpu_torch.cli import export as cli_export
 from multibox_tpu_torch.cli import priors as cli_priors
 from multibox_tpu_torch.cli import serve as cli_serve
 from multibox_tpu_torch.cli import train as cli_train
+from multibox_tpu_torch.cli import visualize as cli_visualize
+from multibox_tpu_torch.cli import visualize_inputs as cli_visualize_inputs
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.models import convert
@@ -75,6 +77,27 @@ def test_no_module_builds_or_imports_gpu_tooling_at_import_time():
                 names = [a.name for a in node.names] + [getattr(node, "module", "") or ""]
                 assert not any(n.split(".")[0] == "triton" for n in names), path
     assert kernels._lib is None  # nothing loaded a library on the way here
+
+
+def test_importing_every_module_builds_and_loads_no_library():
+    """A fresh interpreter imports every module of the port (the native
+    layer, the CLIs among them): no kernel or native library is built or
+    loaded, and neither triton nor JAX is imported."""
+    import subprocess
+    import sys
+
+    modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                     for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+            "from multibox_tpu_torch.data import _native\n"
+            "from multibox_tpu_torch.ops import kernels\n"
+            "assert _native._libs == {} and kernels._lib is None\n"
+            "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert len(modules) > 40
 
 
 def needs_no_cuda():
@@ -137,6 +160,9 @@ def CheckpointManager_restore():
         lambda: tserving.load_exported("unused"),
         lambda: tserve.make_server("unused"),
         lambda: cli_serve.main(["--export_dir", "unused"]),
+        lambda: cli_visualize.main(["--tfrecords", "unused", "--priors", "unused.pkl",
+                                    "--checkpoint_path", "unused", "--output_dir", "unused"]),
+        lambda: cli_visualize_inputs.main(["--tfrecords", "unused", "--output_dir", "unused"]),
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
          "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
@@ -145,7 +171,7 @@ def CheckpointManager_restore():
          "evaluate_state", "generate_priors_kmeans", "run_detection", "cli_priors",
          "cli_train", "cli_detect", "cli_evaluate", "build_model_int8", "make_detect_body_int8",
          "prepare_quantized_variables", "export_detector", "cli_export", "load_exported",
-         "make_server", "cli_serve"],
+         "make_server", "cli_serve", "cli_visualize", "cli_visualize_inputs"],
 )
 def test_entry_points_raise_without_cuda_when_device_is_unset(call):
     needs_no_cuda()

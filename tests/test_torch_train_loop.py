@@ -13,6 +13,7 @@ chunking, remat): exact, the same operations on the same CPU.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -459,8 +460,16 @@ def test_burn_boxes_draws_the_box_outline():
     assert got[0].any() and not got[1].any()
 
 
-def test_train_refuses_what_is_not_ported(tmp_path):
+def test_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A ``pretrained_model`` that is neither a logdir of this package nor a
+    readable checkpoint raises; without TensorFlow (the GPU machine has
+    none) the slim and keras formats raise ``ImportError`` naming it."""
     cfg = small_cfg()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(Exception, match="model.ckpt"):
         train_from_batches(cfg, [], PRIORS, str(tmp_path / "b"), max_steps=1,
                            pretrained_model=str(tmp_path / "model.ckpt"), device="cpu")
+    monkeypatch.setitem(sys.modules, "tensorflow", None)  # import raises
+    for name in ("model.ckpt", "model.h5", "model.keras"):
+        with pytest.raises(ImportError, match="needs TensorFlow"):
+            train_from_batches(cfg, [], PRIORS, str(tmp_path / "b"), max_steps=1,
+                               pretrained_model=str(tmp_path / name), device="cpu")
