@@ -42,6 +42,24 @@ read just after) and that what comes out is right, stage by stage:
   ``cli.detect`` (configs/cub_detect.yaml) and ``cli.evaluate``; Hungarian
   matching of one batch (B=32, G=16, P=256) on the card against the CPU
   and scipy, its ms and exit tests a call;
+- parallel: data parallelism at configs/voc_train.yaml's full width with
+  use_pallas: true and greedy matching (Inception-v3 299, P = 256, global
+  batch 32, G = 16, augmentation on, no shuffling), on the cli phase's
+  records: each kernel first against its plain version at the shapes a
+  rank gives it (16 train rows, 8 detect rows); (a) ``train.loop.train``
+  in one process, 4 steps; (b) the same call in two ranks of 16 rows,
+  reading a copy of the records in rank order (so that their global
+  batches are (a)'s), spawned with torchrun's environment (two
+  processes sharing one card over gloo where there is one card, a card
+  each over NCCL where there are two), then step 1 again with a float32
+  backbone; (c) one rank in an NCCL group for 2 steps, then each
+  collective of ``parallel.mesh`` once over NCCL; (d) the 2-rank run
+  stopped at step 2 and resumed to 4; (e) ``run_detect_loop`` over 37
+  records sharded 19 / 18 at 8 a batch on each rank against one process;
+  (f) ``cli.detect`` under ``torch.distributed.run`` against the
+  one-process CLI; on one card, NCCL with two ranks on it, its error
+  recorded; ms a step of (a) and (b), the collectives' count and ms a step
+  (CUDA events on rank 0);
 - ssd: configs/ssd_multiscale.yaml at full width (Inception-v3 299, the
   SSD head over Mixed_5d / Mixed_6e / Mixed_7c, 35² / 17² / 8² grids, 6
   priors a cell from ``cli.priors --mode multiscale``: P = 9,468; batch
@@ -114,6 +132,15 @@ as shipped, the gap is reported); launch counts exact per path. Phase
 serve: the exported programs bitwise equal to the live function; the int8
 routes exactly the int64 reference; the NMS kernel exact at P = 18,936 and
 40,000 on its global-keys route (kernels phase and SSD with flip TTA).
+Phase parallel: the replicas bitwise equal after the 2-rank run; each
+rank's launches a step those of one process (1 match, 3 fused_matmul, 3
+fused_matmul_backward, 1 box_encode); the 2-rank losses against one
+process's within PAR_TOL (relative; its comment gives what was measured),
+step 2's tolerance under half of what a halved gradient does; the resumed
+2-rank run's final state bitwise the unsegmented one's; the sharded
+detect's and the torchrun CLI's results: the same image ids, counts exact,
+boxes and scores within 1e-4; metrics.jsonl once a step, the output file
+written by rank 0 alone.
 Phase data: records equal to their annotations (boxes within 1e-6, the
 COCO file's float64 pixels back to float32), the two readers' records
 byte-equal, the native JPEG decode within a mean absolute difference of
@@ -126,6 +153,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -163,6 +191,7 @@ from multibox_tpu_torch.ops.kernels import (  # noqa: E402
     match_kernel,
     nms_kernel,
 )
+from multibox_tpu_torch.parallel import shard_batch  # noqa: E402
 from multibox_tpu_torch.train import loop as train_loop  # noqa: E402
 from multibox_tpu_torch.train import loss as train_loss  # noqa: E402
 from multibox_tpu_torch.train import state as train_state  # noqa: E402
@@ -1116,7 +1145,7 @@ def train_stage_times(cfg, model, state, priors, batch, reps=5):
     samples = {n: [] for n in names}
     for r in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        db = train_loop._device_batch(batch, DEV)
+        db = shard_batch(batch, DEV)
         ev[0].record()
         images, boxes, num = augment.augment_batch(
             train_loop.step_generator(cfg.seed, s.step, DEV), db["images"], db["boxes"],
@@ -1700,6 +1729,550 @@ def phase_cli(rng, card_line):
 
 
 # --------------------------------------------------------------------------
+# data parallelism: two ranks, an NCCL group, the sharded detect and its CLI
+# --------------------------------------------------------------------------
+
+PAR_STEPS = 4
+# The parallel phase's tolerances against the one-process run, relative,
+# as measured on an H100 (PERF.md, section 6): step 1's loss,
+# one forward whose BatchNorm statistics sum in another order, with the
+# bf16 backbone as shipped (measured 1.6e-3: bf16 roundings that flip) and
+# with a float32 one (measured 1.1e-6); step 2's, one update in (measured
+# 3.1e-3; a halved gradient moves it by 7.1e-2, and the phase checks that it
+# moves it by more than twice the tolerance); steps 3-4 (measured up to
+# 6.8e-3); the sharded detect's boxes and scores (absolute; the JAX package's multi-host
+# detect test's; measured 0) and the detect CLI's file under torchrun
+# (exactly the one-process file's, as measured: the same convolutions on
+# batches of the same shape).
+PAR_TOL = {"step1": 5e-3, "step1_f32": 1e-4, "step2": 2e-2, "band": 3e-2,
+           "detect": 1e-4, "detect_cli": 0.0}
+DETECT_RECORDS, DETECT_BATCH = 37, 8
+
+
+def parallel_config():
+    """configs/voc_train.yaml at full width with greedy matching and
+    use_pallas: true, so that B4, B2, B2' and B3b run; every step logged."""
+    from multibox_tpu_torch.config import parse_config_file
+
+    return dataclasses.replace(parse_config_file("configs/voc_train.yaml"), use_pallas=True,
+                               matching="greedy", log_every_steps=1)
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every tensor's bytes (and every other leaf's repr) in
+    key order."""
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        h.update(str(k).encode())
+        if isinstance(v, dict):
+            h.update(tree_digest(v).encode())
+        elif isinstance(v, torch.Tensor):
+            h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def logged_steps(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if "loss" in line]
+
+
+def local_records(n, rank, world):
+    return len(range(rank, n, world))
+
+
+def parallel_worker(spec_path) -> int:
+    """One rank of the phase ``parallel`` (``--parallel_worker SPEC``):
+    joins the process group the environment describes and runs the runs
+    ``spec["kind"]`` names; writes its results to ``<spec["out"]>.rank<r>``."""
+    import torch.distributed as dist
+
+    from multibox_tpu_torch.data.pipeline import DetectionDataset
+    from multibox_tpu_torch.parallel import init_data_parallel, mesh
+    from multibox_tpu_torch.priors import load_priors
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    path = f"{spec['out']}.rank{rank}"
+
+    def write():
+        with open(path, "w") as f:
+            json.dump(out, f)
+
+    if spec["kind"] == "probe":  # NCCL with two ranks on one card
+        try:
+            init_data_parallel(backend="nccl", device="cuda:0", timeout_s=30)
+            t = torch.ones(1, device="cuda:0")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out["result"] = f"all_reduce ran: {t.item()}"
+        except Exception as e:  # the finding itself: recorded, then reported
+            out["result"] = f"{type(e).__name__}: {e}"[:600]
+        write()
+        os._exit(0)  # no teardown of a failed communicator
+
+    init_data_parallel(backend=spec["backend"], device=spec["device"], timeout_s=300)
+    device = resolve_device(spec["device"])
+    out.update(world=mesh.world_size(), backend=dist.get_backend(), device=str(device))
+    cfg = parallel_config()
+    priors = load_priors(spec["priors"])
+    steps = spec["steps"]
+
+    def run(logdir, max_steps, run_cfg=cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_loop.train(run_cfg, [spec["records"]], priors, logdir,
+                                 max_steps=max_steps, schedule_total=steps, shuffle=False,
+                                 device=spec["device"])
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    if spec["kind"] == "nccl1":  # (c): one rank in an NCCL group
+        kernels.reset_launch_counts()
+        state, seconds = run(spec["logdir_c"], 2)
+        out["c"] = {"launches": kernels.launch_counts(), "seconds": seconds,
+                    "device_resolved": str(resolve_device(None))}
+        del state
+        # each collective of parallel.mesh once on the card over NCCL (with one
+        # rank the step itself issues none)
+        g = [torch.randn(1000, device=device), torch.randn(10, 10, device=device)]
+        want = [x.clone() for x in g]
+        mesh.all_reduce_tensors(g, "gradients")
+        x = torch.randn(5, device=device, requires_grad=True)
+        mesh.all_reduce_sum(x, "batch_norm").mul(3.0).sum().backward()
+        b = torch.arange(4.0, device=device)
+        dist.broadcast(b, 0)
+        parts = [torch.empty(3, device=device)]
+        dist.all_gather(parts, torch.full((3,), 7.0, device=device))
+        dist.barrier(device_ids=[device.index])
+        torch.cuda.synchronize()
+        ok = (all(torch.equal(a, w) for a, w in zip(g, want)) and torch.equal(
+            x.grad, torch.full_like(x, 3.0)) and torch.equal(parts[0], torch.full_like(
+                parts[0], 7.0)) and torch.equal(b, torch.arange(4.0, device=device)))
+        if not ok:
+            raise AssertionError("an NCCL collective of parallel.mesh gave a wrong result")
+        out["c"]["nccl_ops"] = ("all_reduce of a flat buffer, the differentiable sum forward "
+                                "and backward, broadcast, all_gather, barrier")
+        write()
+        return 0
+
+    # (b): the 2-rank run
+    mesh.time_collectives(True)
+    mesh.reset_collective_counts()
+    kernels.reset_launch_counts()
+    state_b, seconds = run(spec["logdir_b"], steps)
+    out["b"] = {"launches": kernels.launch_counts(), "seconds": seconds,
+                "collectives": dict(mesh.COLLECTIVES), "collective_ms": mesh.collective_ms(),
+                "digest": tree_digest(state_b.to_dict()),
+                "gradient_bytes": sum(v.numel() * v.element_size()
+                                      for v in state_b.params.values())}
+    mesh.time_collectives(False)
+    # step 1 again with a float32 backbone
+    run(spec["logdir_b"] + "_f32", 1, dataclasses.replace(cfg, compute_dtype="float32"))
+    # (d): stopped at step 2, resumed to the end
+    kernels.reset_launch_counts()
+    run(spec["logdir_d"], 2)
+    state_d, _ = run(spec["logdir_d"], steps)
+    out["d"] = {"launches": kernels.launch_counts(), "digest": tree_digest(state_d.to_dict()),
+                "params_max_abs_diff_vs_b": max(
+                    float((state_d.params[k] - v).detach().abs().max())
+                    for k, v in state_b.params.items())}
+    del state_d
+    # (e): the sharded detect over (b)'s final state
+    dcfg = dataclasses.replace(cfg, batch_size=DETECT_BATCH)
+    dataset = DetectionDataset([spec["detect_records"]], batch_size=DETECT_BATCH,
+                               canvas_size=dcfg.input_size, max_num_bboxes=dcfg.max_num_bboxes,
+                               shard_index=rank, shard_count=mesh.world_size())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    results = inference.run_detect_loop(dcfg, state_b.detect_variables(), dataset, priors,
+                                        device=device)
+    torch.cuda.synchronize()
+    local = local_records(DETECT_RECORDS, rank, mesh.world_size())
+    out["e"] = {"launches": kernels.launch_counts(), "local_images": local,
+                "local_batches": -(-local // DETECT_BATCH), "results": len(results)}
+    if rank == 0:
+        with open(spec["detect_out"], "wb") as f:
+            pickle.dump(results, f)
+    write()
+    return 0
+
+
+def run_ranks(root, name, spec, world, timeout):
+    """``world`` processes of ``chip_smoke.py --parallel_worker`` with the
+    environment torchrun gives its ranks; their logs under ``root``. Raises
+    (with the logs' ends) unless each exits 0; returns their results."""
+    spec = dict(spec, out=os.path.join(root, name))
+    spec_path = os.path.join(root, f"{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(root, f"{name}.rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel_worker", spec_path],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+            stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    results = []
+    for r in range(world):
+        path = f"{spec['out']}.rank{r}"
+        results.append(json.load(open(path)) if os.path.exists(path) else None)
+    return codes, results
+
+
+def require_ranks(root, name, codes, results):
+    if codes != [0] * len(codes) or None in results:
+        tails = []
+        for r in range(len(codes)):
+            with open(os.path.join(root, f"{name}.rank{r}.log")) as f:
+                tails.append(f"rank {r} (exit {codes[r]}):\n" + f.read()[-3000:])
+        raise AssertionError(f"parallel {name}: " + "\n".join(tails))
+    return results
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def compare_detections(got, want, what, atol):
+    """The same image ids, no duplicate, counts exact, boxes and scores
+    within ``atol``; returns the largest difference."""
+    ids = [r["image_id"] for r in got]
+    if len(set(ids)) != len(ids) or set(ids) != {r["image_id"] for r in want}:
+        raise AssertionError(f"{what}: image ids {sorted(ids)[:5]}... differ or repeat")
+    ref, worst = {r["image_id"]: r for r in want}, 0.0
+    for g in got:
+        w = ref[g["image_id"]]
+        if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["classes"],
+                                                                      w["classes"]):
+            raise AssertionError(f"{what}: {g['image_id']} has {len(g['scores'])} "
+                                 f"detections against {len(w['scores'])}")
+        if len(g["scores"]):
+            worst = max(worst, float(np.abs(g["boxes"] - w["boxes"]).max()),
+                        float(np.abs(g["scores"] - w["scores"]).max()))
+    if worst > atol:
+        raise AssertionError(f"{what}: boxes or scores {worst} apart (tolerance {atol})")
+    return worst
+
+
+def check_rank_shapes(rng, cfg, train_rows, detect_rows):
+    """Each kernel of the phase against its plain version at the shapes
+    one rank gives it, which no other phase reaches: a train rank's head
+    (B2 forward, B2' backward), matching (B4) and encoding (B3b) at
+    ``train_rows`` images; a detect rank's head (B2), decoding (B3a) and
+    NMS (B1) at ``detect_rows``. Tolerances as in the kernels phase: B2 and
+    B2' float32 rtol 1e-4 / atol 1e-4, B1 and B4 exact, B3 bitwise."""
+    P, G = cfg.num_priors, cfg.max_num_bboxes
+    out = {}
+
+    def head(n):  # the head's three layers at n images (an 8×8 grid, P priors)
+        return (("Bottleneck", 64 * n, 2048, 96, True), ("Locations", n, 6144, 4 * P, False),
+                ("Confidences", n, 6144, P, False))
+
+    for what, n in (("train", train_rows), ("detect", detect_rows)):
+        for name, M, Kd, N, relu in head(n):
+            e = forward_entry(rng, f"{name}_rows{n}", M, Kd, N, relu, torch.float32)
+            out[f"fused_matmul_{what}_{name}"] = {k: e[k] for k in (
+                "M", "K", "N", "route", "split_k", "max_abs_err", "ms", "plain_ms")}
+    for name, M, Kd, N, relu in head(train_rows):
+        e = backward_entry(rng, f"{name}_rows{train_rows}", M, Kd, N, relu)
+        out[f"fused_matmul_backward_train_{name}"] = {k: e[k] for k in (
+            "M", "K", "N", "max_abs_err", "ms", "plain_ms")}
+
+    tg = dev(random_boxes(rng, (train_rows, G)))
+    tn = dev(rng.integers(1, G + 1, train_rows).astype(np.int32))
+    tp = dev(random_boxes(rng, (P,)))
+    got = match_kernel.greedy_match_cuda(tg, tn, tp)
+    if not torch.equal(got, match_kernel.greedy_match_plain(tg, tn, tp)):
+        raise AssertionError(f"match at a train rank's B={train_rows}: assignments differ")
+    out["match_train"] = f"B={train_rows} G={G} P={P}: exact"
+    for kind, n in (("box_encode", train_rows), ("box_decode", detect_rows)):
+        a = dev(rng.normal(0, 0.3, (n, P, 4)).astype(np.float32))
+        if kind == "box_encode":
+            pairs = [(box_kernel.encode_boxes_cuda(a, tp), box_kernel.encode_boxes_plain(
+                a, tp[None]))]
+        else:
+            pairs = [(box_kernel.decode_boxes_cuda(a, tp, clip), box_kernel.decode_boxes_plain(
+                a, tp[None], clip)) for clip in (True, False)]
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in pairs):
+            raise AssertionError(f"{kind} at B={n} P={P} differs")
+        out[kind] = f"B={n} P={P}: bitwise"
+    b, sc = random_boxes(rng, (detect_rows, P)), rng.uniform(0, 1, (detect_rows, P))
+    nms_exact(f"detect_rank_b{detect_rows}", dev(b), dev(sc.astype(np.float32)),
+              cfg.max_detections, cfg.nms_iou_threshold, cfg.detect_score_threshold)
+    out["nms_detect"] = f"B={detect_rows} P={P} K={cfg.max_detections}: exact"
+    torch.cuda.synchronize()
+    return out
+
+
+def rank_ordered_records(src, dst, world, local):
+    """A copy of the records at ``src`` laid out so that ``world`` ranks,
+    each reading ``local`` rows a step from its round-robin shard
+    (``DetectionDataset``'s rule, the JAX package's), read in rank order the
+    batches one process reads from ``src`` (no shuffling): record
+    ``world·(s·local + j) + r`` is ``src``'s ``(s·world + r)·local + j``."""
+    from multibox_tpu_torch.data.tfrecord import TFRecordWriter, read_records
+
+    recs = list(read_records([src]))
+    if len(recs) % (world * local):
+        raise ValueError(f"{len(recs)} records are not whole global batches of "
+                         f"{world * local}")
+    out = [None] * len(recs)
+    for i, rec in enumerate(recs):
+        step, g = divmod(i, world * local)
+        r, j = divmod(g, local)
+        out[world * (step * local + j) + r] = rec
+    with TFRecordWriter(dst) as w:
+        for rec in out:
+            w.write(rec)
+
+
+def phase_parallel(rng, card_line, records, priors_path):
+    """Data parallelism at configs/voc_train.yaml's full width (Inception-v3
+    299, P = 256, global batch 32, G = 16; use_pallas=True and greedy
+    matching, so B4, B2, B2' and B3b run; augmentation on, no shuffling) on
+    the cli phase's records: (a) ``train.loop.train`` in one process; (b)
+    the same call in two ranks of 16 rows each, on a copy of the records in
+    rank order (``rank_ordered_records``: the ranks' global batches are
+    (a)'s, so every image is augmented alike) (two processes sharing one
+    card over gloo, or a card each over NCCL where there are two); (c) one
+    rank in an NCCL group; (d) the 2-rank run stopped at step 2 and resumed;
+    (e) ``run_detect_loop`` over a 2-way sharded dataset against one
+    process; (f) ``cli.detect`` under torchrun against one process. Where
+    one card is all there is, NCCL with two ranks on it is tried and its
+    error recorded. Returns the launch counts of the phase."""
+    from multibox_tpu_torch.cli import detect as cli_detect
+    from multibox_tpu_torch.data import _native
+    from multibox_tpu_torch.priors import load_priors
+
+    root = os.path.abspath(os.path.join(".work", "chip_smoke_parallel"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    cfg = parallel_config()
+    det_rec = os.path.join(root, "detect.tfrecord")
+    write_records(rng, det_rec, DETECT_RECORDS, cfg.input_size, 1000)
+    priors = load_priors(priors_path)
+    # the libraries are built before anything is spawned
+    _native.reader_library()
+    kernels.load_library()
+    cards = torch.cuda.device_count()
+    two = "nccl" if cards >= 2 else "gloo"
+    rank_shapes = check_rank_shapes(rng, cfg, cfg.batch_size // 2, DETECT_BATCH)
+    # the two ranks read the records in rank order: their global batches are (a)'s
+    records_b = os.path.join(root, "train_rank_order.tfrecord")
+    rank_ordered_records(records, records_b, 2, cfg.batch_size // 2)
+    out = {"phase": "parallel", "card": card_line, "cards": cards,
+           "config": "configs/voc_train.yaml with use_pallas: true and matching: greedy "
+                     f"(inception_v3 {cfg.input_size}, P={cfg.num_priors}, global batch "
+                     f"{cfg.batch_size}, G={cfg.max_num_bboxes}, {cfg.compute_dtype} backbone, "
+                     "augmentation on, no shuffling)",
+           "two_ranks": ("two processes sharing one card (gloo, CUDA tensors); times not a "
+                         "scaling figure") if two == "gloo" else "two cards, one a rank (NCCL)",
+           "tolerances": PAR_TOL, "kernels_at_rank_shapes": rank_shapes}
+    total = {}
+    want_step = {"match": 1, "fused_matmul": 3, "fused_matmul_backward": 3, "box_encode": 1}
+
+    # (a) one process, no group
+    logdir_a = os.path.join(root, "a")
+    state_a, counts = counted(lambda: train_loop.train(
+        cfg, [records], priors, logdir_a, max_steps=PAR_STEPS, schedule_total=PAR_STEPS,
+        shuffle=False, device=DEV),
+        {k: v * PAR_STEPS for k, v in want_step.items()}, "parallel (a)")
+    add_counts(total, counts)
+    del state_a
+    logged_a = logged_steps(logdir_a)
+    loss_a = [r["loss"] for r in logged_a]
+    # what the tolerances are held against: step 1 with a float32 backbone,
+    # and step 2 after an update with half the gradient (RMSProp with
+    # epsilon 1.0 inside the root is linear in small gradients: half the
+    # learning rate stands for it)
+    kernels.reset_launch_counts()
+    for name, steps, run_cfg in (
+            ("a_f32", 1, dataclasses.replace(cfg, compute_dtype="float32")),
+            ("a_half", 2, dataclasses.replace(
+                cfg, initial_learning_rate=cfg.initial_learning_rate / 2))):
+        train_loop.train(run_cfg, [records], priors, os.path.join(root, name),
+                         max_steps=steps, schedule_total=PAR_STEPS, shuffle=False, device=DEV)
+    add_counts(total, kernels.launch_counts())
+    torch.cuda.empty_cache()
+    loss_a32 = logged_steps(os.path.join(root, "a_f32"))[0]["loss"]
+    half = rel(logged_steps(os.path.join(root, "a_half"))[1]["loss"], loss_a[1])
+    if not PAR_TOL["step2"] < half / 2:
+        raise AssertionError(f"a halved gradient moves step 2's loss by {half}: the "
+                             f"tolerance {PAR_TOL['step2']} would not see it")
+
+    # (b), (d), (e): two ranks
+    spec = {"kind": "train2", "backend": None if two == "nccl" else "gloo",
+            "device": None if two == "nccl" else "cuda:0", "priors": priors_path,
+            "records": records_b, "steps": PAR_STEPS, "detect_records": det_rec,
+            "logdir_b": os.path.join(root, "b"), "logdir_d": os.path.join(root, "d"),
+            "detect_out": os.path.join(root, "detect_2ranks.pkl")}
+    t0 = time.perf_counter()
+    ranks = require_ranks(root, "train2", *run_ranks(root, "train2", spec, 2, timeout=600))
+    seconds_ranks = time.perf_counter() - t0
+    logged_b = logged_steps(spec["logdir_b"])
+    loss_b = [r["loss"] for r in logged_b]
+    if [r["step"] for r in logged_b] != list(range(1, PAR_STEPS + 1)):
+        raise AssertionError(f"(b) metrics.jsonl steps {[r['step'] for r in logged_b]}")
+    if ranks[0]["b"]["digest"] != ranks[1]["b"]["digest"]:
+        raise AssertionError("(b): the two ranks' states differ after the run")
+    for r in ranks:
+        if r["b"]["launches"] != counts or r["d"]["launches"] != counts:
+            raise AssertionError(f"rank {r['rank']} launches {r['b']['launches']} / "
+                                 f"{r['d']['launches']}, one process {counts}")
+        add_counts(total, r["b"]["launches"])
+        add_counts(total, r["d"]["launches"])
+    diffs = [rel(b, a) for a, b in zip(loss_a, loss_b)]
+    diff32 = rel(logged_steps(spec["logdir_b"] + "_f32")[0]["loss"], loss_a32)
+    if not (diffs[0] <= PAR_TOL["step1"] and diffs[1] <= PAR_TOL["step2"]
+            and max(diffs) <= PAR_TOL["band"] and diff32 <= PAR_TOL["step1_f32"]):
+        raise AssertionError(f"(b) losses {loss_b} against (a) {loss_a}: {diffs}; "
+                             f"step 1 in float32 {diff32}")
+    logged_d = logged_steps(spec["logdir_d"])
+    loss_d = [r["loss"] for r in logged_d]
+    resume = [rel(d, b) for b, d in zip(loss_b, loss_d)]
+    if [r["step"] for r in logged_d] != list(range(1, PAR_STEPS + 1)) or \
+            CheckpointManager(spec["logdir_d"]).all_steps() != [2, PAR_STEPS] or \
+            any(r["d"]["digest"] != r["b"]["digest"] for r in ranks):
+        raise AssertionError(f"(d) resumed run: {loss_d} against {loss_b}; the final "
+                             "state must be (b)'s bit for bit")
+    rank0 = ranks[0]["b"]
+    ms_a = [cfg.batch_size * 1e3 / r["images_per_sec"] for r in logged_a[1:]]
+    ms_b = [cfg.batch_size * 1e3 / r["images_per_sec"] for r in logged_b[1:]]
+    out.update({
+        "a": {"loss": loss_a, "ms_per_step": ms_a, "launches": counts},
+        "b": {"loss": loss_b, "rel_diff_vs_a": diffs, "ms_per_step": ms_b,
+              "step1_f32_rel_diff_vs_a": diff32, "step2_rel_diff_of_a_halved_gradient": half,
+              "replicas_bitwise_equal": True, "backend": ranks[0]["backend"],
+              "devices": [r["device"] for r in ranks],
+              "launches_per_rank": rank0["launches"],
+              "collectives_per_step": {k: v / PAR_STEPS for k, v in rank0["collectives"].items()},
+              "gradient_all_reduce_bytes": rank0["gradient_bytes"],
+              "collective_ms_per_step_rank0": {k: v / PAR_STEPS
+                                               for k, v in rank0["collective_ms"].items()},
+              "metrics_jsonl_steps": [r["step"] for r in logged_b]},
+        "d": {"loss": loss_d, "rel_diff_vs_b": resume,
+              "params_max_abs_diff_vs_b": ranks[0]["d"]["params_max_abs_diff_vs_b"],
+              "state_bitwise_equal_to_b": True, "checkpoints": [2, PAR_STEPS]},
+        "ranks_seconds": seconds_ranks})
+
+    # (e) the sharded detect against one process, on (b)'s final state
+    dcfg = dataclasses.replace(cfg, batch_size=DETECT_BATCH)
+    model = inference.build_model(dcfg, priors.shape[0], device=DEV)
+    state = CheckpointManager(spec["logdir_b"]).restore(
+        train_state.create_train_state(dcfg, model, SEED, priors.shape[0], device=DEV),
+        device=DEV)
+    from multibox_tpu_torch.data.pipeline import DetectionDataset
+
+    batches = -(-DETECT_RECORDS // DETECT_BATCH)
+    want, counts_e = counted(lambda: inference.run_detect_loop(
+        dcfg, state.detect_variables(), DetectionDataset(
+            [det_rec], batch_size=DETECT_BATCH, canvas_size=dcfg.input_size,
+            max_num_bboxes=dcfg.max_num_bboxes), priors, device=DEV),
+        {"nms": batches, "fused_matmul": 3 * batches, "box_decode": batches}, "(e) one process")
+    add_counts(total, counts_e)
+    del model, state
+    with open(spec["detect_out"], "rb") as f:
+        got = pickle.load(f)
+    check_results(got, DETECT_RECORDS, dcfg.max_detections)
+    worst_e = compare_detections(got, want, "(e) sharded detect", PAR_TOL["detect"])
+    for r in ranks:
+        n = r["e"]["local_batches"]
+        if r["e"]["launches"] != {**{k: 0 for k in counts_e}, "nms": n, "fused_matmul": 3 * n,
+                                  "box_decode": n} or r["e"]["results"] != DETECT_RECORDS:
+            raise AssertionError(f"(e) rank {r['rank']}: {r['e']}")
+        add_counts(total, r["e"]["launches"])
+    out["e"] = {"images": DETECT_RECORDS, "batch_a_rank": DETECT_BATCH,
+                "local_images": [r["e"]["local_images"] for r in ranks],
+                "launches_per_rank": [r["e"]["launches"] for r in ranks],
+                "max_abs_diff_vs_one_process": worst_e}
+
+    # (c) one rank in an NCCL group on cuda:0
+    (c,) = require_ranks(root, "nccl1", *run_ranks(
+        root, "nccl1", dict(spec, kind="nccl1", backend=None, device=None, records=records,
+                            logdir_c=os.path.join(root, "c")), 1, timeout=300))
+    loss_c = [r["loss"] for r in logged_steps(os.path.join(root, "c"))]
+    if c["backend"] != "nccl" or c["c"]["launches"] != {
+            k: want_step.get(k, 0) * 2 for k in counts}:
+        raise AssertionError(f"(c): {c}")
+    add_counts(total, c["c"]["launches"])
+    out["c"] = {"backend": c["backend"], "device": c["c"]["device_resolved"], "loss": loss_c,
+                "rel_diff_vs_a": [rel(x, a) for x, a in zip(loss_c, loss_a)],
+                "launches": c["c"]["launches"], "nccl_ops": c["c"]["nccl_ops"]}
+
+    # (f) the detect CLI under torchrun against the one-process CLI
+    f1, f2 = os.path.join(root, "detect_cli_1.pkl"), os.path.join(root, "detect_cli_2.pkl")
+    args = ["--tfrecords", det_rec, "--priors", priors_path, "--checkpoint_path",
+            spec["logdir_b"], "--config", "configs/voc_train.yaml"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "multibox_tpu_torch.cli.detect", *args, "--output", f2]
+    if two == "gloo":
+        cmd += ["--device", "cuda:0", "--dist_backend", "gloo"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    seconds_f = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"(f) torchrun detect CLI exit {done.returncode}:\n"
+                             f"{done.stderr[-3000:]}")
+    writes = done.stdout.count("image results to")
+    with contextlib.redirect_stdout(sys.stderr):
+        _, counts_f = counted(lambda: cli_detect.main(args + ["--output", f1]),
+                              {"nms": -(-DETECT_RECORDS // cfg.batch_size)}, "(f) one process")
+    add_counts(total, counts_f)
+    with open(f1, "rb") as f:
+        want_f = pickle.load(f)
+    with open(f2, "rb") as f:
+        got_f = pickle.load(f)
+    worst_f = compare_detections(got_f, want_f, "(f) detect CLI", PAR_TOL["detect_cli"])
+    if writes != 1:
+        raise AssertionError(f"(f): {writes} ranks wrote the output")
+    out["f"] = {"command": "python3 -m torch.distributed.run --standalone --nproc_per_node 2 "
+                           "-m multibox_tpu_torch.cli.detect ..." + (
+                               " --device cuda:0 --dist_backend gloo" if two == "gloo" else ""),
+                "seconds": seconds_f, "writers": writes, "images": len(got_f),
+                "max_abs_diff_vs_one_process": worst_f}
+
+    if cards == 1:  # NCCL with two ranks on one card: the finding, as the card gives it
+        codes, probe = run_ranks(root, "probe", {"kind": "probe"}, 2, timeout=60)
+        out["nccl_two_ranks_one_card"] = [p["result"] if p else f"exit {c}, no result"
+                                          for c, p in zip(codes, probe)]
+    shutil.rmtree(root, ignore_errors=True)  # checkpoints of some 350 MB each
+    out.update({"ok": True, "launches": total, "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    return total
+
+
+# --------------------------------------------------------------------------
 # the SSD multi-scale and MobileNetV2 configurations
 # --------------------------------------------------------------------------
 
@@ -1734,7 +2307,7 @@ def nms_at_path_inputs(name, seen):
 def augmented(cfg, state, batch):
     """The step's own augmented ``(images, boxes, num)`` of one host batch."""
     gen = train_loop.step_generator(cfg.seed, state.step, DEV)
-    db = train_loop._device_batch(batch, DEV)
+    db = shard_batch(batch, DEV)
     return augment.augment_batch(gen, db["images"], db["boxes"], db["num_boxes"], cfg)
 
 
@@ -2483,7 +3056,10 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run one detect loop under torch.profiler and "
                              "print the device's idle share and top kernels")
+    parser.add_argument("--parallel_worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.parallel_worker:  # a rank spawned by phase parallel
+        return parallel_worker(args.parallel_worker)
     t_start = time.perf_counter()
     card_line = card()
     emit({"phase": "device", "card": card_line, "torch": torch.__version__,
@@ -2514,6 +3090,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_counts, records = phase_cli(rng, card_line)
     torch.cuda.empty_cache()
+    # its own generator: the later phases' draws stay as they were
+    parallel_counts = phase_parallel(np.random.default_rng(SEED + 10), card_line, records,
+                                     os.path.join(os.path.dirname(records), "priors.pkl"))
+    torch.cuda.empty_cache()
     ssd_counts, ssd_rows = phase_ssd(rng, gen, card_line, records)
     mobilenet_counts, mobilenet_rows = phase_mobilenet(rng, gen, card_line)
     torch.cuda.empty_cache()
@@ -2521,12 +3101,13 @@ def main() -> int:
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the seven paths: detect (B1, B2, B3a), train (B2, B3b, B4),
-    # data (B1 in visualize), cli (B1), ssd (B1, B4), mobilenet (B1, B2, B3a,
-    # B3b, B4) and serve (B1, B2, B3a inside the exported programs; B1 with
-    # flip TTA)
-    paths = (counts, train_counts, data_counts, cli_counts, ssd_counts, mobilenet_counts,
-             serve_counts)
+    # launches on the eight paths: detect (B1, B2, B3a), train (B2, B3b, B4),
+    # data (B1 in visualize), cli (B1), parallel (B2, B3b, B4 on every rank;
+    # B1, B2, B3a in the sharded detect; B1 in the one-process detect CLI),
+    # ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve (B1, B2, B3a
+    # inside the exported programs; B1 with flip TTA)
+    paths = (counts, train_counts, data_counts, cli_counts, parallel_counts, ssd_counts,
+             mobilenet_counts, serve_counts)
     for e in entries + [backward]:
         e["launches"] = sum(c.get(e["name"], 0) for c in paths)
     # the new paths' shapes beside each kernel's main row

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: logging, tfrecord globs, the config file and the
-device flag.
+"""Shared CLI plumbing: logging, tfrecord globs, the config file, the
+device flag and joining a ``torchrun`` process group.
 
 Own counterpart of the JAX package's ``cli/common.py``, without its
 compilation cache and platform flags: PyTorch compiles nothing ahead of a
@@ -50,3 +50,20 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 def load_config(args: argparse.Namespace) -> Config:
     return parse_config_file(args.config) if args.config else Config()
+
+
+def add_parallel_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--dist_backend", choices=("nccl", "gloo"), default=None,
+        help="under torchrun: the process group's backend (default: NCCL, "
+             "each rank on cuda:LOCAL_RANK; gloo when --device is cpu; pass "
+             "gloo for ranks that share the card --device names)",
+    )
+
+
+def init_parallel(args: argparse.Namespace) -> bool:
+    """Join the process group ``torchrun`` describes in the environment,
+    if any (``parallel.init_data_parallel``)."""
+    from multibox_tpu_torch.parallel import init_data_parallel
+
+    return init_data_parallel(backend=args.dist_backend, device=args.device)

@@ -5,7 +5,9 @@ Restores the latest checkpoint of a train logdir (the EMA shadows by
 default), runs the detect pipeline batch by batch and writes
 {image_id → boxes, scores, classes} to a pickle or JSON file: the format
 of the JAX package's ``multibox-detect``, so either package's evaluator
-reads the other's output. The flags of that CLI, plus ``--device``.
+reads the other's output. The flags of that CLI, plus ``--device`` and
+``--dist_backend``. Under ``torchrun`` each rank detects its shard of the
+records or image files, the results are gathered, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -20,11 +22,14 @@ from multibox_tpu_torch import priors as priors_mod
 from multibox_tpu_torch.cli.common import (
     add_config_arg,
     add_device_arg,
+    add_parallel_arg,
     expand_tfrecords,
+    init_parallel,
     load_config,
     setup_logging,
 )
 from multibox_tpu_torch.device import resolve_device
+from multibox_tpu_torch.parallel import mesh
 
 
 def run_detection(cfg, tfrecords, priors, checkpoint_path,
@@ -35,8 +40,10 @@ def run_detection(cfg, tfrecords, priors, checkpoint_path,
     host loop is ``inference.run_detect_loop``. With ``cfg.quantize ==
     "int8"`` the EMA weights are folded, quantized and calibrated on this
     run's own first ``cfg.quant_calib_batches`` batches (the dataset is
-    iterated again from the start for the detection). One process is the
-    whole set (the JAX package's multi-host gather waits for item 18)."""
+    iterated again from the start for the detection; under a process group
+    each rank calibrates on its own shard). Under a process group the
+    default dataset is sharded over the ranks and every rank returns the
+    whole gathered list (``inference.run_detect_loop``)."""
     from multibox_tpu_torch.data.pipeline import DetectionDataset
     from multibox_tpu_torch.inference import build_model, run_detect_loop
     from multibox_tpu_torch.train.state import create_train_state
@@ -52,6 +59,8 @@ def run_detection(cfg, tfrecords, priors, checkpoint_path,
             batch_size=cfg.batch_size,
             canvas_size=cfg.input_size,
             max_num_bboxes=cfg.max_num_bboxes,
+            shard_index=mesh.rank(),
+            shard_count=mesh.world_size(),
         )
     variables = state.detect_variables()
     if cfg.quantize != "none":
@@ -84,8 +93,10 @@ def main(argv=None) -> int:
     parser.add_argument("--score_threshold", type=float, default=None)
     add_config_arg(parser)
     add_device_arg(parser)
+    add_parallel_arg(parser)
     args = parser.parse_args(argv)
     setup_logging()
+    init_parallel(args)
     device = resolve_device(args.device)
 
     if bool(args.tfrecords) == bool(args.images):
@@ -104,8 +115,10 @@ def main(argv=None) -> int:
         for p in args.images:
             matched = sorted(globmod.glob(p))
             paths.extend(matched if matched else [p])
+        # every rank globs the same sorted list and keeps its shard
         image_dataset = ImageFileDataset(
-            paths, batch_size=cfg.batch_size, canvas_size=cfg.input_size)
+            paths, batch_size=cfg.batch_size, canvas_size=cfg.input_size,
+            shard_index=mesh.rank(), shard_count=mesh.world_size())
 
     results = run_detection(
         cfg,
@@ -113,6 +126,17 @@ def main(argv=None) -> int:
         priors, args.checkpoint_path, args.score_threshold,
         dataset=image_dataset, device=device,
     )
+    if image_dataset is not None and mesh.world_size() > 1:
+        # each rank recorded the source sizes of its own shard; --coco_json
+        # needs all of them. A collective: every rank, before the write gate
+        from multibox_tpu_torch.parallel import process_allgather_objects
+
+        merged = {}
+        for shard_sizes in process_allgather_objects(image_dataset.sizes):
+            merged.update(shard_sizes)
+        image_dataset.sizes = merged
+    if mesh.rank() != 0:
+        return 0  # every rank holds the whole list; rank 0 alone writes
 
     if args.output.endswith(".json"):
         payload = [

@@ -3,7 +3,9 @@
 Reports AP@0.5, AP@0.75, COCO mAP@[.5:.95] and recall (per class and by
 object size on request). Takes a detections file from either package's
 detect CLI, or a checkpoint to run detection inline. The flags of the JAX
-package's ``multibox-eval``, plus ``--device``.
+package's ``multibox-eval``, plus ``--device`` and ``--dist_backend``: under
+``torchrun`` the inline detection is sharded over the ranks and gathered,
+and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from multibox_tpu_torch import priors as priors_mod
 from multibox_tpu_torch.cli.common import (
     add_config_arg,
     add_device_arg,
+    add_parallel_arg,
     expand_tfrecords,
+    init_parallel,
     load_config,
     setup_logging,
 )
@@ -26,6 +30,7 @@ from multibox_tpu_torch.data.example_proto import parse_detection_example
 from multibox_tpu_torch.data.tfrecord import read_records
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.evaluate import evaluate_detections
+from multibox_tpu_torch.parallel import mesh
 
 
 def load_groundtruth(tfrecords, with_labels: bool = False,
@@ -94,8 +99,10 @@ def main(argv=None) -> int:
                              "image/width features)")
     add_config_arg(parser)
     add_device_arg(parser)
+    add_parallel_arg(parser)
     args = parser.parse_args(argv)
     setup_logging()
+    init_parallel(args)
     device = resolve_device(args.device)
 
     tfrecords = expand_tfrecords(args.tfrecords)
@@ -118,6 +125,8 @@ def main(argv=None) -> int:
                                 device=device)
 
     metrics = evaluate(results, tfrecords, cfg, args.per_class, args.by_size)
+    if mesh.rank() != 0:
+        return 0
     for k, v in metrics.items():
         print(f"{k}: {v:.4f}")
     return 0

@@ -1,5 +1,12 @@
 """multibox-torch-train — training CLI (the flags of the JAX package's
-``multibox-train``, plus ``--device``)."""
+``multibox-train``, plus ``--device`` and ``--dist_backend``).
+
+Data parallel on N cards:
+``torchrun --nproc_per_node N -m multibox_tpu_torch.cli.train ...``; each
+rank joins the process group first thing and trains on the global batch
+``cfg.batch_size`` (``train.loop.train``). With ``--restart_every_steps``
+the supervisor stays one process that joins no group, and each child
+joins it."""
 
 from __future__ import annotations
 
@@ -13,7 +20,9 @@ from multibox_tpu_torch import priors as priors_mod
 from multibox_tpu_torch.cli.common import (
     add_config_arg,
     add_device_arg,
+    add_parallel_arg,
     expand_tfrecords,
+    init_parallel,
     load_config,
     setup_logging,
 )
@@ -116,8 +125,9 @@ def main(argv=None) -> int:
                         help="validation tfrecords for periodic AP eval")
     parser.add_argument("--eval_every_steps", type=int, default=1000)
     parser.add_argument("--no_mesh", action="store_true",
-                        help="accepted for the JAX package's flag surface; "
-                             "the port trains on one device")
+                        help="under several ranks, train each rank's shard "
+                             "with its own one-device step (no gradient "
+                             "all-reduce), as the JAX package's flag does")
     parser.add_argument("--restart_every_steps", type=int, default=None,
                         help="supervise bounded-lifetime child processes of N "
                              "steps each (crash auto-restart + host-RAM "
@@ -128,16 +138,18 @@ def main(argv=None) -> int:
                              "sets this for its children)")
     add_config_arg(parser)
     add_device_arg(parser)
+    add_parallel_arg(parser)
     args = parser.parse_args(argv)
     setup_logging()
-    device = resolve_device(args.device)
-
     cfg = load_config(args)
     restart = (
         args.restart_every_steps
         if args.restart_every_steps is not None
         else cfg.restart_every_steps
     )
+    if restart <= 0:  # the supervisor launches the children and joins no group
+        init_parallel(args)
+    device = resolve_device(args.device)
     if restart > 0:
         total = (
             args.max_number_of_steps

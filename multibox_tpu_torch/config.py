@@ -2,10 +2,10 @@
 
 Own copy of the ``Config`` surface of the JAX package, field for field, so
 the same YAML files load unchanged (snake_case keys and the original
-UPPER_CASE keys). Fields that belong to parts not ported yet (int8,
-multi-device) are kept so that a config file round-trips; the code that
-reads them raises ``NotImplementedError`` until its slice lands.
-Unknown keys warn instead of failing so older configs load.
+UPPER_CASE keys). ``data_axis`` (the JAX package's mesh axis) is kept so
+that a config file round-trips, and read by nothing here: the port's data
+parallelism is one process a card under ``torch.distributed``
+(``parallel``). Unknown keys warn instead of failing so older configs load.
 """
 
 from __future__ import annotations
@@ -161,7 +161,6 @@ class Config:
     # detect FLOPs; validate per dataset. Off by default.
     flip_tta: bool = False
     # Post-training quantization of the detect path: "none" | "int8".
-    # "int8" is not ported yet and raises NotImplementedError.
     quantize: str = "none"
     quant_calib_batches: int = 4
 

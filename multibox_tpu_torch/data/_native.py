@@ -9,8 +9,11 @@ Two libraries from ``multibox_tpu_torch/native``:
 They are built apart, so that a machine without libjpeg's headers still
 has the reader. Each is compiled on its first use into ``.work/native/``
 beside the package, under a name tagged with a hash of its source and
-flags, written to a temporary file and moved into place with
-``os.replace`` (several processes may build at once). A failed build
+flags. Several processes may start at once (test workers, the ranks of a
+data-parallel run): a build holds an ``fcntl`` lock on ``.work/native.lock``
+(``utils.build_lock``), so one process builds and the others,
+waiting, find the library and load it; the library is written to a
+temporary name and moved into place with ``os.replace``. A failed build
 raises with the compiler's output: nothing falls back to Python here.
 Nothing is built or loaded when this module is imported.
 """
@@ -27,6 +30,8 @@ import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+from multibox_tpu_torch.utils.build_lock import build_lock
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_SRC)), ".work", "native")
@@ -64,7 +69,8 @@ def jpeg_headers_present() -> bool:
 
 def build(name: str) -> str:
     """Compile ``native/<name>.cc`` into a shared library; returns its
-    path. Reuses a library built from the same source and flags."""
+    path. Reuses a library built from the same source and flags, also one
+    that another process built while this one waited for the lock."""
     source = os.path.join(_SRC, f"{name}.cc")
     libs = ("-ljpeg",) if name == "jpeg_decode" else ()
     flags = cxx_flags()
@@ -74,18 +80,21 @@ def build(name: str) -> str:
     lib_path = os.path.join(_BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib_path):
         return lib_path
-    cxx = find_cxx()
-    if libs and not jpeg_headers_present():
-        raise RuntimeError(
-            "jpeglib.h not found: the native JPEG decoder needs libjpeg's headers "
-            "(a libjpeg or libjpeg-turbo development package)")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cxx, *flags, "-o", tmp, source, *libs]
-    done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"g++ failed on {name}.cc:\n$ {' '.join(cmd)}\n{done.stdout}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    with build_lock(_BUILD_DIR):
+        if os.path.exists(lib_path):  # built by another process meanwhile
+            return lib_path
+        cxx = find_cxx()
+        if libs and not jpeg_headers_present():
+            raise RuntimeError(
+                "jpeglib.h not found: the native JPEG decoder needs libjpeg's headers "
+                "(a libjpeg or libjpeg-turbo development package)")
+        tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [cxx, *flags, "-o", tmp, source, *libs]
+        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"g++ failed on {name}.cc:\n$ {' '.join(cmd)}\n{done.stdout}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path
 
 

@@ -321,11 +321,27 @@ def apply_augment(params: Dict, images: torch.Tensor, boxes: torch.Tensor,
     return images, boxes, num_boxes
 
 
+def take_rows(params: Dict, start: int, stop: int) -> Dict:
+    """Rows ``[start, stop)`` of every tensor of drawn parameters."""
+    return {k: take_rows(v, start, stop) if isinstance(v, dict) else v[start:stop]
+            for k, v in params.items()}
+
+
 def augment_batch(gen: torch.Generator, images: torch.Tensor, boxes: torch.Tensor,
                   num_boxes: torch.Tensor, cfg,
-                  labels: Optional[torch.Tensor] = None):
+                  labels: Optional[torch.Tensor] = None,
+                  rows: Optional[Tuple[int, int]] = None):
     """Full train-time augmentation: :func:`draw_augment_params` from
     ``gen`` (a generator on the batch's device), then
-    :func:`apply_augment`."""
-    return apply_augment(draw_augment_params(gen, images.shape[0], cfg),
-                         images, boxes, num_boxes, cfg, labels)
+    :func:`apply_augment`. ``rows=(first, global_batch)``: the batch is
+    rows ``first…`` of a global batch (a data-parallel rank's share);
+    the parameters are drawn for the whole global batch and the batch's
+    rows kept, so that each image is augmented as it would be in one
+    process."""
+    B = images.shape[0]
+    if rows is None:
+        params = draw_augment_params(gen, B, cfg)
+    else:
+        first, total = rows
+        params = take_rows(draw_augment_params(gen, total, cfg), first, first + B)
+    return apply_augment(params, images, boxes, num_boxes, cfg, labels)

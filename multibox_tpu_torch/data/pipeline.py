@@ -84,9 +84,9 @@ class DetectionDataset:
         (record-level round-robin: exact and balanced regardless of file
         count, unlike file-level splits). Every host still READS all
         records (raw IO is cheap; the expensive parse/decode is skipped
-        for foreign records). The train loop wires this automatically from
-        the process's rank on multi-process runs (not ported yet: one process
-        reads everything).
+        for foreign records). The train loop, periodic eval and the detect
+        CLI wire this from the process's rank under a process group
+        (``parallel``); one process reads everything.
         """
         self.paths = list(map(str, tfrecord_paths))
         self.batch_size = batch_size
@@ -278,7 +278,7 @@ class ImageFileDataset:
     shards partition the input exactly. Id uniqueness is decided on the
     global set (every process must assign the same id to the same file —
     the post-gather merge keys on it). ``self.sizes`` covers only this
-    process's shard (the port runs one process: all of it).
+    process's shard (the detect CLI gathers them).
     """
 
     def __init__(self, paths: Sequence[str], batch_size: int,

@@ -18,6 +18,7 @@ returns the same callable as ``make_detect_body``.
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from typing import Dict
 
 import numpy as np
@@ -32,6 +33,8 @@ from multibox_tpu_torch.models.detector import MultiBoxDetector
 from multibox_tpu_torch.ops import boxes as box_ops
 from multibox_tpu_torch.ops.kernels import box_kernel, resolve_use_pallas
 from multibox_tpu_torch.ops.nms import batched_nms, batched_soft_nms
+from multibox_tpu_torch.parallel.gather import process_allgather_objects
+from multibox_tpu_torch.parallel.sync import world_size
 
 log = logging.getLogger(__name__)
 
@@ -60,9 +63,8 @@ def build_model(
         mobilenet_width=cfg.mobilenet_width,
         head_type=cfg.head_type,
         num_classes=cfg.num_classes,
-        compute_dtype=torch.bfloat16
-        if cfg.compute_dtype == "bfloat16"
-        else torch.float32,
+        compute_dtype={"bfloat16": torch.bfloat16, "float64": torch.float64}.get(
+            cfg.compute_dtype, torch.float32),
         bottleneck_features=cfg.bottleneck_features,
         ssd_endpoints=tuple(cfg.ssd_endpoints),
         ssd_priors_per_cell=cfg.ssd_priors_per_cell,
@@ -364,14 +366,27 @@ def run_detect_loop(
     ``dataset`` is any iterable of batch dicts ``{images uint8 [B, H, W, 3],
     image_ids, batch_valid}``. Batches ship as uint8 (4× smaller than f32 —
     preprocessing runs on the device), and the drain of batch N's outputs
-    overlaps batch N+1's device work (1-deep pipeline). One device; the
-    multi-device and multi-host paths of the JAX package are not ported
-    yet. ``variables`` must already live on ``device``.
+    overlaps batch N+1's device work (1-deep pipeline). ``variables`` must
+    already live on ``device``.
+
+    Under a process group of more than one rank (the counterpart of the
+    JAX package's ``make_parallel_detect_fn``), each rank runs this loop on
+    its card over its shard of the records (``dataset`` built with
+    ``shard_index`` / ``shard_count`` = rank / world; ``cfg.batch_size`` is
+    a rank's batch), and one ``process_allgather_objects`` merges the
+    ranks' lists in rank order: every rank returns the whole list.
 
     Returns a list of per-image dicts {image_id, boxes, scores, classes}
     with only valid, above-threshold slots (host numpy).
     """
     thr = cfg.detect_score_threshold if score_threshold is None else score_threshold
+    world = world_size()
+    if world > 1 and getattr(dataset, "shard_count", 1) != world:
+        # every rank would detect the same images and the merge duplicate them
+        raise ValueError(
+            "multi-process detect needs a dataset sharded over the ranks: build it "
+            "with shard_index=rank, shard_count=world size (got shard_count="
+            f"{getattr(dataset, 'shard_count', 1)} with {world} ranks)")
     if fns is None:
         fns = make_detect_loop_fns(cfg, priors, use_ema=use_ema, device=device)
     elif device is not None and torch.device(device).type != fns["device"].type:
@@ -403,4 +418,15 @@ def run_detect_loop(
         inflight = (batch, fetch)
     if inflight is not None:
         drain(*inflight)
+    if world > 1:
+        results = [r for part in process_allgather_objects(results) for r in part]
+        # two ranks mis-wired with the same shard_index would detect one
+        # shard twice and drop another, with no other symptom
+        ids = [r["image_id"] for r in results]
+        if len(set(ids)) != len(ids):
+            dups = [k for k, n in Counter(ids).items() if n > 1]
+            raise RuntimeError(
+                f"multi-process gather merged duplicate image ids ({dups[:5]}"
+                f"{'...' if len(dups) > 5 else ''}): check that every rank's "
+                "dataset was built with its own shard_index (= its rank)")
     return results

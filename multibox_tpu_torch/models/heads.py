@@ -68,7 +68,7 @@ class MultiBoxHead(nn.Module):
         # (8·8·2048 → 8·8·96 ≈ 6k features); ReLU fused into the matmul
         # epilogue on the kernel path. The flatten is row-major over
         # (row, col, channel), which is why the layer is NHWC.
-        x = self.Bottleneck(x).reshape(B, -1)
+        x = self.Bottleneck(x).flatten(1)  # also for B = 0
         loc = self.Locations(x).reshape(B, self.num_priors, 4)
         conf = self.Confidences(x)
         if self.num_classes == 1:

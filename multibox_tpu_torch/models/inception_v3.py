@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multibox_tpu_torch.models.layers import FusedConv1x1
+from multibox_tpu_torch.parallel import mesh
 
 # Endpoints exposed to detection heads, in forward order.
 ENDPOINTS = (
@@ -82,7 +83,9 @@ class SlimBatchNorm(nn.Module):
     whatever the input dtype, the variance is the biased fast form
     ``max(0, E[x²] − E[x]²)``, gradients flow through both, and the running
     statistics become ``m·running + (1 − m)·batch`` with ``m = momentum``
-    (0.9997, slim's), left in :attr:`updated` for the caller to collect."""
+    (0.9997, slim's), left in :attr:`updated` for the caller to collect.
+    Inside a data-parallel step (``parallel.mesh.reducing``) the statistics
+    are the global batch's, so the replicas' running statistics agree."""
 
     def __init__(self, features: int, momentum: float = 0.9997,
                  use_scale: bool = False):
@@ -104,8 +107,18 @@ class SlimBatchNorm(nn.Module):
         # statistics in at least float32 (flax's promote_types(dtype, f32))
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        mean = x32.mean(dims)
-        var = ((x32 * x32).mean(dims) - mean * mean).clamp_min(0.0)
+        if mesh.reducing():
+            # the global batch's statistics (flax's BatchNorm under the
+            # sharded jit): Σx, Σx² and the count summed over the ranks
+            C = x32.shape[1]
+            count = x32.new_full((1,), x32.numel() // C)
+            sums = mesh.all_reduce_sum(
+                torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count]), "batch_norm")
+            mean = sums[:C] / sums[-1]
+            var = (sums[C:2 * C] / sums[-1] - mean * mean).clamp_min(0.0)
+        else:
+            mean = x32.mean(dims)
+            var = ((x32 * x32).mean(dims) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + BN_EPS)
         if self.scale is not None:  # flax: mul *= scale, then y *= mul
             mul = mul * self.scale

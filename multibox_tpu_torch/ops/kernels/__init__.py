@@ -13,7 +13,10 @@ the same function. A wrapper uses the plain version only for a tensor that
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.
 
 The build goes to ``.work/kernels/`` beside the package (override with
-``MULTIBOX_TORCH_BUILD_DIR``). Nothing here runs at import time.
+``MULTIBOX_TORCH_BUILD_DIR``), under the lock of ``utils.build_lock``
+so that of several processes starting together (the ranks of a
+data-parallel run) one builds and the others load. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from multibox_tpu_torch.utils.build_lock import build_lock
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -114,8 +119,14 @@ def build_library(ptxas_verbose: bool = False):
     lib_path = os.path.join(out_dir, f"libmultibox_kernels_{tag}.so")
     if os.path.exists(lib_path) and not ptxas_verbose:
         return lib_path, ""
-    os.makedirs(out_dir, exist_ok=True)
+    with build_lock(out_dir):
+        if os.path.exists(lib_path) and not ptxas_verbose:
+            return lib_path, ""  # built by another process meanwhile
+        return lib_path, _compile(nvcc, out_dir, tag, lib_path, ptxas_verbose)
 
+
+def _compile(nvcc: str, out_dir: str, tag: str, lib_path: str,
+             ptxas_verbose: bool) -> str:
     # One nvcc per source, all started together.
     procs = []
     for name, extra in _SOURCES.items():
@@ -146,7 +157,7 @@ def build_library(ptxas_verbose: bool = False):
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     for _, obj, _, _ in procs:
         os.remove(obj)
-    return lib_path, "\n".join(log)
+    return "\n".join(log)
 
 
 _lib = None

@@ -12,8 +12,11 @@ step → metrics, checkpoints and periodic eval.
   (the JAX package's record order); :func:`train_from_batches` takes any
   stream of host batches. With ``eval_tfrecords`` the loop runs detection
   and AP over them every ``eval_every_steps`` steps.
-- One process, one device: the JAX package's multi-device and multi-host
-  data parallelism is not ported yet (ROADMAP.md, queue 1, item 18).
+- Data parallel under a process group (``torchrun``, ``parallel``): each
+  rank reads its shard of the records at ``cfg.batch_size // world`` images
+  a step, the step runs over the global batch
+  (``parallel.make_parallel_train_step``), rank 0 alone writes metrics and
+  checkpoints, and periodic eval detects each rank's shard and gathers.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ from multibox_tpu_torch.data import augment as augment_mod
 from multibox_tpu_torch.data.pipeline import DetectionDataset, Prefetcher
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.inference import build_model, make_detect_loop_fns, run_detect_loop
+from multibox_tpu_torch.parallel import (
+    coordination_barrier,
+    make_mesh,
+    make_parallel_train_step,
+    replicate_state,
+    shard_batch,
+)
+from multibox_tpu_torch.parallel import mesh
 from multibox_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -50,29 +61,28 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def _device_batch(batch, device):
-    return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()}
-
-
 def make_augmented_train_step(cfg: Config, model, priors, device=None):
     """Wrap the train step so that augmentation runs first, on the device.
 
     Batch in: uint8 canvases ``images [B, H, W, 3]``, ``boxes [B, G, 4]``,
     ``num_boxes [B]`` and optional ``labels [B, G]`` (numpy or tensors).
     With ``cfg.augment`` off, images only go through ``preprocess_eval``.
+    Inside a data-parallel step the batch is the rank's rows of the global
+    batch, and the augmentation parameters are drawn for the global batch
+    (``augment_batch(rows=...)``), so each image is augmented as in one
+    process.
     """
     device = resolve_device(device)
     base_step = make_train_step(cfg, model, priors, device=device)
 
     def step(state: TrainState, batch):
-        batch = _device_batch(batch, device)
+        batch = shard_batch(batch, device)
         labels = batch.get("labels")
         if cfg.augment:
             gen = step_generator(cfg.seed, state.step, device)
             out = augment_mod.augment_batch(
                 gen, batch["images"], batch["boxes"], batch["num_boxes"], cfg,
-                labels=labels)
+                labels=labels, rows=mesh.global_rows(batch["images"].shape[0]))
             if labels is not None:
                 images, boxes, num_boxes, labels = out
             else:
@@ -175,11 +185,21 @@ def _warm_start_from_logdir(state: TrainState, path: str, device) -> TrainState:
     return state
 
 
+def eval_config(cfg: Config) -> Config:
+    """The detect/eval config of a rank, from the training config:
+    ``cfg.batch_size`` is the global train batch, and ``run_detect_loop``
+    takes ``batch_size`` a rank, so each rank evaluates at its share."""
+    per_rank = max(1, cfg.batch_size // mesh.world_size())
+    if per_rank == cfg.batch_size:
+        return cfg
+    return dataclasses.replace(cfg, batch_size=per_rank)
+
+
 def make_eval_fns(cfg: Config, priors, device):
     """The detect functions of periodic eval, built once so that repeated
-    evals reuse them. One process: the eval batch is the train batch (the
-    JAX package's per-host share, ``eval_config``, waits for item 18)."""
-    return make_detect_loop_fns(cfg, priors, device=device)
+    evals reuse them. ``cfg`` is the training config (:func:`eval_config`
+    is applied here)."""
+    return make_detect_loop_fns(eval_config(cfg), priors, device=device)
 
 
 def evaluate_state(cfg: Config, state: TrainState, priors, eval_tfrecords,
@@ -191,7 +211,9 @@ def evaluate_state(cfg: Config, state: TrainState, priors, eval_tfrecords,
     passed pre-loaded (the loop reads it once per run): the boxes dict, or
     a ``(boxes, labels)`` tuple; with labels and ``cfg.num_classes > 1``
     the summary also carries the per-class protocol (``mAP@0.5``, the
-    per-class APs and ``mAP@[.5:.95]/per_class``)."""
+    per-class APs and ``mAP@[.5:.95]/per_class``). Under a process group
+    each rank detects its shard of the records and ``run_detect_loop``
+    gathers, so the summary is global and the same on every rank."""
     from multibox_tpu_torch.cli.evaluate import load_groundtruth
     from multibox_tpu_torch.evaluate import (
         evaluate_detections,
@@ -199,11 +221,14 @@ def evaluate_state(cfg: Config, state: TrainState, priors, eval_tfrecords,
     )
 
     device = resolve_device(device)
+    cfg = eval_config(cfg)
     dataset = DetectionDataset(
         eval_tfrecords,
         batch_size=cfg.batch_size,
         canvas_size=cfg.input_size,
         max_num_bboxes=cfg.max_num_bboxes,
+        shard_index=mesh.rank(),
+        shard_count=mesh.world_size(),
     )
     gt_labels = None
     if gt is None:
@@ -260,16 +285,25 @@ def train(
     by ``DetectionDataset``, repeated and, unless ``shuffle=False``,
     shuffled with the seed ``cfg.seed + start step``: a resumed run (or each
     ``--restart_every_steps`` child) does not replay the stream from its
-    top. ``use_mesh`` is accepted for the JAX package's signature; one
-    device is all there is. See :func:`train_from_batches` for the rest.
+    top; the seed is the same on every rank.
+
+    Under a process group ``cfg.batch_size`` is the global batch: each rank
+    reads ``cfg.batch_size // world`` images a step from its shard of the
+    records (``DetectionDataset``'s round-robin, as in the JAX package), and
+    the global batch is the ranks' batches in rank order.
+    See :func:`train_from_batches` for the rest (``use_mesh`` there).
     """
-    del use_mesh  # one device (ROADMAP.md, queue 1, item 18)
     canvas = canvas_size or max(int(cfg.input_size * 1.15), cfg.input_size)
+    world = mesh.world_size()
+    if cfg.batch_size % world:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} not divisible by the world size {world}")
+    local_batch = cfg.batch_size // world
 
     def batches(start_step: int):
         dataset = DetectionDataset(
             tfrecords,
-            batch_size=cfg.batch_size,
+            batch_size=local_batch,
             canvas_size=canvas,
             max_num_bboxes=cfg.max_num_bboxes,
             shuffle=shuffle,
@@ -280,6 +314,8 @@ def train(
             label_offset=cfg.label_offset,
             # multi-class: an out-of-range label fails loudly on the host
             num_classes=cfg.num_classes if cfg.num_classes > 1 else None,
+            shard_index=mesh.rank(),
+            shard_count=world,
         )
         keys = ("images", "boxes", "num_boxes") + (
             ("labels",) if cfg.num_classes > 1 else ())
@@ -290,7 +326,7 @@ def train(
         cfg, batches, priors, logdir, pretrained_model=pretrained_model,
         max_steps=max_steps, eval_tfrecords=eval_tfrecords,
         eval_every_steps=eval_every_steps, schedule_total=schedule_total,
-        device=device)
+        use_mesh=use_mesh, device=device)
 
 
 def train_from_batches(
@@ -303,9 +339,10 @@ def train_from_batches(
     eval_tfrecords: Optional[Sequence[str]] = None,
     eval_every_steps: int = 0,
     schedule_total: Optional[int] = None,
+    use_mesh: bool = True,
     device=None,
 ) -> TrainState:
-    """Run training on one device over a stream of host batches; returns
+    """Run training over a stream of host batches; returns
     the final state. Resumes from ``logdir``'s latest checkpoint when there
     is one.
 
@@ -320,9 +357,19 @@ def train_from_batches(
     spans several bounded invocations. With ``eval_tfrecords`` and
     ``eval_every_steps``, :func:`evaluate_state` runs whenever the step
     crosses a multiple of ``eval_every_steps``, and its metrics are written
-    with an ``eval/`` prefix. ``device=None`` is the CUDA device.
+    with an ``eval/`` prefix. ``device=None`` is the CUDA device (the
+    rank's card under a process group).
+
+    Under a process group of N ranks each rank passes its own local batches
+    (``cfg.batch_size // N`` rows; the global batch is the ranks' batches in
+    rank order). With ``use_mesh`` (the default) the state is broadcast
+    from rank 0 and the step runs over the global batch
+    (``parallel.make_parallel_train_step``); ``use_mesh=False`` keeps the
+    JAX package's meaning, a one-device step in each process (the ranks
+    then train apart). Rank 0 writes the metrics and checkpoints.
     """
-    device = resolve_device(device)
+    place = make_mesh(device)
+    device = place.device
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     total = max_steps if max_steps is not None else cfg.max_number_of_steps
@@ -333,10 +380,12 @@ def train_from_batches(
     model = build_model(cfg, priors.shape[0], device=device)
     state = create_train_state(cfg, model, cfg.seed, priors.shape[0], device=device)
 
+    # ranks reach the checkpoint directory with their start-up's skew
+    coordination_barrier("train/pre_checkpoint_manager")
     ckpt = CheckpointManager(logdir, keep=cfg.keep_checkpoints,
                              save_every=cfg.save_every_steps)
     start_step = 0
-    latest = ckpt.latest_step()
+    latest = ckpt.latest_known_step
     if latest is not None:
         log.info("resuming from checkpoint step %d", latest)
         state = ckpt.restore(state, device=device)
@@ -345,10 +394,16 @@ def train_from_batches(
         state = _restore_pretrained(state, pretrained_model, device)
 
     step_fn = make_augmented_train_step(cfg, model, priors, device=device)
+    if place.size > 1 and use_mesh:
+        state = replicate_state(state)
+        step_fn = make_parallel_train_step(step_fn)
+    elif place.size > 1:
+        log.warning("use_mesh=False under %d ranks: each rank trains on its own "
+                    "shard with its own step", place.size)
     chunk = max(1, int(cfg.steps_per_host_transfer))
     cstep = make_chunked_step(step_fn, chunk) if chunk > 1 else None
     source = batches(start_step) if callable(batches) else batches
-    writer = MetricsWriter(logdir)
+    writer = MetricsWriter(logdir, enabled=place.rank == 0)
 
     t_last = time.time()
     step_idx = start_step
@@ -372,6 +427,8 @@ def train_from_batches(
             step_idx += 1
         return state, metrics, step_idx
 
+    # the ranks start the steps together, every manager made before rank 0 saves
+    coordination_barrier("train/first_step")
     try:
         for batch in Prefetcher(iter(source), depth=3):
             if step_idx >= total:
@@ -398,7 +455,8 @@ def train_from_batches(
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 profiler.__exit__(None, None, None)
-                profiler.export_chrome_trace(os.path.join(logdir, "trace.json"))
+                profiler.export_chrome_trace(os.path.join(
+                    logdir, "trace.json" if place.size == 1 else f"trace_rank{place.rank}.json"))
                 profiler, profiled = None, True
                 log.info("wrote profiler trace to %s", logdir)
 
@@ -442,7 +500,8 @@ def train_from_batches(
                     ckpt.save(step_idx, state, force=True)
             else:
                 ckpt.save(step_idx, state)
-        if ckpt.latest_step() != step_idx:
+        # from the manager's record: rank 0 may be writing the directory
+        if ckpt.latest_known_step != step_idx:
             ckpt.save(step_idx, state, force=True)
     finally:
         if profiler is not None:

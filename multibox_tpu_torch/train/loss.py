@@ -7,7 +7,10 @@ prior matching of Szegedy et al. (arXiv:1412.1441 §2), on the device:
   F_conf = − Σ_matched log σ(c) − Σ_selected-neg log(1 − σ(c))
   F      = F_conf + α · F_loc
 
-Both terms are normalized by the number of matched priors across the batch.
+Both terms are normalized by the number of matched priors across the batch:
+inside a data-parallel step (``parallel.mesh.reducing``) the global batch,
+whose count is summed over the ranks, and each rank's loss is its rows'
+share of the global loss.
 Hard-negative mining: per image, only the ``ratio × num_pos`` highest-loss
 negatives count in F_conf, selected by rank (a stable sort and a scatter,
 so equal losses rank in index order).
@@ -25,6 +28,7 @@ import torch
 
 from multibox_tpu_torch.ops import matching as matching_ops
 from multibox_tpu_torch.ops.kernels import match_kernel
+from multibox_tpu_torch.parallel import mesh
 
 
 def multibox_loss(
@@ -71,7 +75,9 @@ def multibox_loss(
       conf_loss: "bce" | "focal" (RetinaNet focal sigmoid CE).
 
     Returns ``(total_loss, metrics)``; the metrics include
-    ``num_gt_dropped``, active gt boxes that received no prior.
+    ``num_gt_dropped``, active gt boxes that received no prior. In a
+    data-parallel step the metrics are the global batch's (sums over the
+    ranks, detached) and ``total_loss`` this rank's share.
     """
     multiclass = conf_logits.dim() == 3
     B, P = conf_logits.shape[:2]
@@ -91,7 +97,11 @@ def multibox_loss(
             prior_gt, gt_boxes, priors, encode, use_kernel=kernels_on)
 
     num_pos = conf_t.sum(dim=1)  # [B]
-    total_pos = num_pos.sum().clamp_min(1.0)
+    global_batch = mesh.reducing()
+    if global_batch:  # normalized by the global batch's positives
+        total_pos = mesh.all_reduce_(num_pos.sum(), "loss").clamp_min(1.0)
+    else:
+        total_pos = num_pos.sum().clamp_min(1.0)
 
     sq = ((loc_preds - loc_t) ** 2).sum(dim=-1)  # [B, P]
     loc_loss = 0.5 * (sq * conf_t).sum() / total_pos
@@ -161,6 +171,10 @@ def multibox_loss(
         "num_gt_dropped": num_gt_dropped,
         "num_bad_labels": num_bad_labels,
     }
+    if global_batch:  # each rank's terms are its share: the sums are global
+        keys = list(metrics)
+        summed = mesh.all_reduce_(torch.stack([metrics[k].detach() for k in keys]), "loss")
+        metrics = dict(zip(keys, summed.unbind()))
     return total, metrics
 
 

@@ -37,6 +37,7 @@ import torch.utils.checkpoint
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.device import resolve_device
 from multibox_tpu_torch.models import detector as detector_mod
+from multibox_tpu_torch.parallel import mesh
 from multibox_tpu_torch.train.loss import multibox_loss
 
 Tensors = Dict[str, torch.Tensor]
@@ -336,7 +337,13 @@ def make_train_step(cfg: Config, model, priors, device=None):
     > 1 runs that many sequential microbatches, the BatchNorm statistics
     carried from one to the next and the gradients summed in f32, then one
     update. ``cfg.remat`` recomputes the forward in the backward pass
-    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    (``torch.utils.checkpoint``) instead of keeping its activations.
+
+    Inside ``parallel.mesh.data_parallel`` under a group (the step of
+    ``parallel.make_parallel_train_step``) ``batch`` is the rank's rows of
+    the global batch: BatchNorm and the loss reduce over the global batch,
+    the microbatches are slices of the global batch, and the gradients are
+    summed over the ranks (one collective a dtype) before the optimizer."""
     device = resolve_device(device)
     optimizer = make_optimizer(cfg)
     priors = torch.as_tensor(priors, dtype=torch.float32).to(device)
@@ -378,14 +385,20 @@ def make_train_step(cfg: Config, model, priors, device=None):
 
     def grads_accumulated(state: TrainState, batch):
         A = cfg.grad_accum_steps
-        B = batch["images"].shape[0]
+        local = batch["images"].shape[0]
+        # microbatch a is rows [a·B/A, (a+1)·B/A) of the GLOBAL batch (the
+        # ranks' rows in rank order); each rank runs its part of it, with
+        # zero rows where it holds none, so that every rank issues the same
+        # collectives
+        first, B = mesh.global_rows(local) or (0, local)
         if B % A != 0:
             raise ValueError(f"batch dim {B} not divisible by grad_accum_steps={A}")
         stats = state.batch_stats
         gsum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in state.params.items()}
         per_micro = []
         for a in range(A):
-            micro = {k: v[a * (B // A):(a + 1) * (B // A)] for k, v in batch.items()}
+            lo, hi = (min(max(r - first, 0), local) for r in (a * (B // A), (a + 1) * (B // A)))
+            micro = {k: v[lo:hi] for k, v in batch.items()}
             grads, stats, metrics = loss_and_grads(state.params, stats, micro)
             for k, g in grads.items():
                 gsum[k] += g
@@ -399,6 +412,8 @@ def make_train_step(cfg: Config, model, priors, device=None):
         else:
             grads, new_stats, metrics = loss_and_grads(
                 state.params, state.batch_stats, batch)
+        if mesh.reducing():  # the rows' shares summed: the global gradient
+            mesh.all_reduce_tensors(list(grads.values()), "gradients")
         optimizer.apply(state.params, grads, state.opt_state)
         ema_update(state.ema_params, state.params, state.step, cfg.moving_average_decay)
         metrics["learning_rate"] = torch.tensor(

@@ -1,1 +1,1 @@
-"""Host-side utilities: checkpoints and metrics."""
+"""Host-side utilities: checkpoints, metrics and the build lock."""

@@ -10,6 +10,17 @@ finds. The oldest files beyond ``keep`` are deleted.
 Same surface as the JAX package's orbax-based manager: ``save``,
 ``restore``, ``restore_raw``, ``latest_step``, ``wait``, ``close``. Saves
 are synchronous, so ``wait`` has nothing to wait for.
+
+Under a process group (``parallel``) every rank calls ``save`` with the
+same state; rank 0 writes and the others wait at a barrier, so that when
+``save`` returns the file is complete for every rank. ``save`` decides
+from :attr:`CheckpointManager.latest_known_step` (the directory's latest
+when the manager was made, then its own saves), never from the directory,
+which rank 0 may be writing while another rank decides: every rank must
+decide alike, or one waits at a save's barrier the others skip. So the
+ranks make their managers between two barriers, with no save in between
+(``train_from_batches`` does): every rank reads the directory when no rank
+is writing it.
 """
 
 from __future__ import annotations
@@ -21,6 +32,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from multibox_tpu_torch.device import resolve_device
+from multibox_tpu_torch.parallel import mesh
+from multibox_tpu_torch.parallel.sync import coordination_barrier
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -54,6 +67,15 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
         self.save_every = save_every
+        self._latest = self.latest_step()
+
+    @property
+    def latest_known_step(self) -> Optional[int]:
+        """The latest step in the directory when the manager was made, or
+        saved by it since: what ``save`` decides from. Unlike
+        :meth:`latest_step` it reads no file, so every rank of a group
+        holds the same value."""
+        return self._latest
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
@@ -72,22 +94,25 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
         """Save at ``step`` when ``force``, or when ``step`` is a multiple
-        of ``save_every`` beyond the latest saved step. Returns whether it
-        saved."""
-        latest = self.latest_step()
+        of ``save_every`` beyond :attr:`latest_known_step`. Returns whether
+        it saved."""
+        latest = self._latest
         if not force:
             if latest is not None and latest >= step:
                 return False
             if self.save_every <= 0 or step % self.save_every:
                 return False
-        tree = state.to_dict() if hasattr(state, "to_dict") else dict(state)
-        tree = _to_host(tree)
-        path = self._path(step)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(tree, tmp)
-        os.replace(tmp, path)  # atomic: a reader sees all of it or none
-        for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
-            os.remove(self._path(old))
+        self._latest = step if latest is None else max(latest, step)
+        if mesh.rank() == 0:
+            tree = state.to_dict() if hasattr(state, "to_dict") else dict(state)
+            tree = _to_host(tree)
+            path = self._path(step)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(tree, tmp)
+            os.replace(tmp, path)  # atomic: a reader sees all of it or none
+            for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
+                os.remove(self._path(old))
+        coordination_barrier("checkpoint/save")
         return True
 
     def restore_raw(self, step: Optional[int] = None, device=None) -> Dict:

@@ -39,11 +39,15 @@ def burn_boxes(images: np.ndarray, boxes: np.ndarray, nums: np.ndarray) -> np.nd
 class MetricsWriter:
     """Appends one JSON record a call to ``<logdir>/metrics.jsonl``; with
     TensorFlow importable, writes the same scalars as TensorBoard events.
-    (The JAX package's writer also has an off switch for its multi-host
-    runs; this package runs on one device.)"""
+    ``enabled=False`` (every rank but 0 of a data-parallel run) opens
+    nothing, and every method does nothing."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, enabled: bool = True):
         self._tb = None
+        self._jsonl = None
+        self.enabled = enabled
+        if not enabled:
+            return
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
         try:
@@ -60,6 +64,8 @@ class MetricsWriter:
             self._tb = None
 
     def write(self, step: int, scalars: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -98,4 +104,5 @@ class MetricsWriter:
         self._tb.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

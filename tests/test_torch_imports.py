@@ -30,6 +30,7 @@ from multibox_tpu_torch.models import convert
 from multibox_tpu_torch.models.detector import MultiBoxDetector
 from multibox_tpu_torch.ops import kernels
 from multibox_tpu_torch.ops.kernels import box_kernel, fused_matmul, match_kernel, nms_kernel
+from multibox_tpu_torch.parallel import init_data_parallel, make_mesh, shard_batch
 from multibox_tpu_torch.train import create_train_state, make_train_step
 from multibox_tpu_torch.train.loop import (
     evaluate_state,
@@ -119,6 +120,23 @@ def CheckpointManager_restore():
         return mgr.restore(None)
 
 
+def init_data_parallel_under_torchrun():
+    """``init_data_parallel()`` in the environment torchrun gives a rank,
+    with no backend named (NCCL)."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": "29555"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return init_data_parallel()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -163,6 +181,9 @@ def CheckpointManager_restore():
         lambda: cli_visualize.main(["--tfrecords", "unused", "--priors", "unused.pkl",
                                     "--checkpoint_path", "unused", "--output_dir", "unused"]),
         lambda: cli_visualize_inputs.main(["--tfrecords", "unused", "--output_dir", "unused"]),
+        init_data_parallel_under_torchrun,
+        lambda: make_mesh(),
+        lambda: shard_batch({"images": np.zeros((1, 2), np.uint8)}),
     ],
     ids=["resolve_device", "build_model", "make_detect_fn", "make_detect_body",
          "make_detect_loop_fns", "run_detect_loop", "flax_to_torch", "explicit_cuda",
@@ -171,7 +192,8 @@ def CheckpointManager_restore():
          "evaluate_state", "generate_priors_kmeans", "run_detection", "cli_priors",
          "cli_train", "cli_detect", "cli_evaluate", "build_model_int8", "make_detect_body_int8",
          "prepare_quantized_variables", "export_detector", "cli_export", "load_exported",
-         "make_server", "cli_serve", "cli_visualize", "cli_visualize_inputs"],
+         "make_server", "cli_serve", "cli_visualize", "cli_visualize_inputs",
+         "init_data_parallel", "make_mesh", "shard_batch"],
 )
 def test_entry_points_raise_without_cuda_when_device_is_unset(call):
     needs_no_cuda()
