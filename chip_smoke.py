@@ -47,19 +47,39 @@ read just after) and that what comes out is right, stage by stage:
   batch 32, G = 16, augmentation on, no shuffling), on the cli phase's
   records: each kernel first against its plain version at the shapes a
   rank gives it (16 train rows, 8 detect rows); (a) ``train.loop.train``
-  in one process, 4 steps; (b) the same call in two ranks of 16 rows,
+  in one process, 3 steps; (b) the same call in two ranks of 16 rows,
   reading a copy of the records in rank order (so that their global
   batches are (a)'s), spawned with torchrun's environment (two
   processes sharing one card over gloo where there is one card, a card
   each over NCCL where there are two), then step 1 again with a float32
   backbone; (c) one rank in an NCCL group for 2 steps, then each
   collective of ``parallel.mesh`` once over NCCL; (d) the 2-rank run
-  stopped at step 2 and resumed to 4; (e) ``run_detect_loop`` over 37
+  stopped at step 2 and resumed to 3; (e) ``run_detect_loop`` over 37
   records sharded 19 / 18 at 8 a batch on each rank against one process;
   (f) ``cli.detect`` under ``torch.distributed.run`` against the
   one-process CLI; on one card, NCCL with two ranks on it, its error
   recorded; ms a step of (a) and (b), the collectives' count and ms a step
   (CUDA events on rank 0);
+- coco_dp: configs/coco_dp.yaml as shipped (Inception-v3 299, 80 classes
+  with per-class NMS, P = 512, G = 64, Hungarian matching with dense
+  matching at 0.5, label_offset 1, global batch 256, use_pallas unset)
+  through the CLIs: COCO files with COCO 2017's 80 gapped category ids
+  (8 training images with 64 boxes, crowd regions) → ``cli.dataset
+  --coco --remap_categories`` → ``cli.priors`` (k-means, 512) →
+  ``cli.train`` at the global batch of 256 in one process (as shipped;
+  grad_accum_steps 2, then remat, only where it does not fit; the peak
+  memory of each try), 3 steps resumed to 4, held bitwise to 4 straight
+  steps on the same batches; stage times; Hungarian on the card at the
+  step's boxes (B=256, G=64, P=512) against the CPU and scipy →
+  ``cli.detect`` and ``cli.evaluate`` (the NMS kernel exact at the
+  80-class sweep's 1,024 candidates with class offsets); the matmul kernel
+  forward and backward at the head's 256- and 32-row shapes against the
+  plain version and ``torch.addmm``; two ranks of 32 sharing the card
+  over gloo against one process at the reduced global batch of 64
+  (losses, replicas bitwise, the 1.1 GB gradient all-reduce's ms);
+- batch_sweep (after train): scripts/torch_train_batch_sweep.py's default
+  arms (b128, b128_remat, b256, b256_accum2) at configs/voc_train.yaml's
+  model: ms a step, images/s, TFLOP/s, MFU, peak memory;
 - ssd: configs/ssd_multiscale.yaml at full width (Inception-v3 299, the
   SSD head over Mixed_5d / Mixed_6e / Mixed_7c, 35² / 17² / 8² grids, 6
   priors a cell from ``cli.priors --mode multiscale``: P = 9,468; batch
@@ -96,9 +116,12 @@ read just after) and that what comes out is right, stage by stage:
   each int8 convolution route exact against an int64 reference at a real
   shape; the HTTP daemon (``serve.make_server``) in-process on 127.0.0.1
   under 8 and 32 concurrent JPEG ``/detect`` clients and one
-  ``/detect_batch`` at the 40 ms and 2 ms batch windows (requests/s, p50,
-  p99, device batches; readings only), and one request alone equal to the
-  program called directly; then configs/ssd_multiscale.yaml with flip_tta:
+  ``/detect_batch`` at the 40 ms batch window (requests/s, p50, p99,
+  device batches; readings only), and one request alone equal to the
+  program called directly; scripts/torch_serve_bench.py over the same
+  export (1, 8, 32 and 64 clients at the 2, 5 and 40 ms windows and with
+  ``--max_batch 1``, then 64 clients against a queue of 16, which sheds
+  with 429s); then configs/ssd_multiscale.yaml with flip_tta:
   true at batch 32 (2 × 9,468 = 18,936 boxes an image into the NMS kernel's
   global-keys route, exact at the path's own inputs, timed).
 
@@ -145,6 +168,20 @@ Phase data: records equal to their annotations (boxes within 1e-6, the
 COCO file's float64 pixels back to float32), the two readers' records
 byte-equal, the native JPEG decode within a mean absolute difference of
 1.0 of PIL's (the JAX package's bound), launch counts exact.
+Phase coco_dp: records equal to their annotations (boxes within 1e-6,
+labels the 80 ids renumbered 1..80 in id order, crowd regions skipped);
+the resumed run's losses and checkpoint bitwise the straight run's;
+Hungarian on the card bitwise the CPU's and optimal on every image (total
+benefit within 1e-6 of scipy's); the detections' classes in [0, 80); the
+NMS kernel exact; the matmul kernel float32 rtol 1e-4 / atol 1e-4 forward
+and backward (as the head's rows); the two ranks' losses within
+COCO_DP_TOL of one process's (its comment gives what was measured), step
+2's tolerance under half of what a halved gradient does, their states
+bitwise equal, the gradient
+all-reduce the model's parameter bytes; no kernel but the NMS in the
+detect CLI launched (use_pallas unset). Phase batch_sweep: every arm runs.
+Phase serve's bench: no request fails, each answered or shed, the bounded
+queue sheds.
 """
 
 from __future__ import annotations
@@ -153,6 +190,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -429,6 +467,12 @@ def matmul_inputs(rng, M, Kd, N, dtype):
     return x, w, b
 
 
+def backward_inputs(rng, M, Kd, N):
+    """B2' data: :func:`matmul_inputs` in float32, then the output's gradient N(0, 1)."""
+    return (*matmul_inputs(rng, M, Kd, N, torch.float32),
+            dev(rng.normal(0, 1, (M, N)).astype(np.float32)))
+
+
 def matmul_bound(M, Kd, N, dtype):
     item = 4 if dtype == torch.float32 else 2
     return bound((M * Kd + Kd * N + M * N) * item + N * 4, 2.0 * M * Kd * N,
@@ -448,11 +492,11 @@ def time_matmul(x, w, b, relu, plain=True):
     return ms, plain_ms, library_ms
 
 
-def forward_entry(rng, name, M, Kd, N, relu, dtype, host=False):
+def forward_entry(name, x, w, b, relu, host=False):
     """B2 on one shape: against the plain version (f32 rtol 1e-4 / atol
     1e-4, bf16 2e-2), a second launch bit-equal, then timed beside the
     plain version and ``torch.addmm``."""
-    x, w, b = matmul_inputs(rng, M, Kd, N, dtype)
+    (M, Kd), N, dtype = x.shape, w.shape[1], x.dtype
     got = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
     again = fused_matmul.fused_matmul_bias_relu(x, w, b, relu)
     torch.cuda.synchronize()
@@ -514,7 +558,8 @@ def check_fused_matmul(rng):
     shapes, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": []}
     for name, M, Kd, N, relu, dtype in head + other:
-        entry = forward_entry(rng, name, M, Kd, N, relu, dtype, host=name in main)
+        entry = forward_entry(name, *matmul_inputs(rng, M, Kd, N, dtype), relu,
+                              host=name in main)
         if name in ("Bottleneck", "Locations", "Confidences"):
             worst = max(worst, entry["max_abs_err"])
             for key in ("ms", "plain_ms", "library_ms"):
@@ -720,12 +765,9 @@ def check_match(rng):
     }
 
 
-def backward_entry(rng, name, M, Kd, N, relu):
+def backward_entry(name, x, w, b, g, relu):
     """B2' on one shape (see :func:`check_fused_backward`)."""
-    x = dev(np.maximum(rng.normal(0, 1, (M, Kd)), 0).astype(np.float32))
-    w = dev((rng.normal(0, 1, (Kd, N)) / np.sqrt(Kd)).astype(np.float32))
-    b = dev(rng.normal(0, 0.1, N).astype(np.float32))
-    g = dev(rng.normal(0, 1, (M, N)).astype(np.float32))
+    (M, Kd), N = x.shape, w.shape[1]
     leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
     y = fused_matmul.fused_matmul_bias_relu(*leaves, relu)
     got = torch.autograd.grad(y, leaves, g, retain_graph=True)
@@ -767,7 +809,7 @@ def check_fused_backward(rng):
     for name, M, Kd, N, relu in (("Bottleneck", 2048, 2048, 96, True),
                                  ("Locations", 32, 6144, 1024, False),
                                  ("Confidences", 32, 6144, 256, False)):
-        entry = backward_entry(rng, name, M, Kd, N, relu)
+        entry = backward_entry(name, *backward_inputs(rng, M, Kd, N), relu)
         worst = max(worst, entry["max_abs_err"])
         for key in ("ms", "plain_ms", "library_ms"):
             totals[key] += entry[key]
@@ -1134,6 +1176,16 @@ def train_stage_checks(cfg, model, state, priors, batch):
             "step_head_param_max_abs_err": head_err}
 
 
+def step_loss(cfg, loc, conf, boxes, num, tpriors, labels=None):
+    """The step's loss as ``train.state.make_train_step`` calls it."""
+    return train_loss.multibox_loss(
+        loc, conf, boxes, num, tpriors, alpha=cfg.location_loss_alpha, matching=cfg.matching,
+        hybrid_conf_weight=cfg.hybrid_conf_weight, hard_negative_ratio=cfg.hard_negative_ratio,
+        multi_match_iou=cfg.multi_match_iou, encode=cfg.box_encoding, gt_labels=labels,
+        use_pallas=cfg.use_pallas, conf_loss=cfg.conf_loss, focal_gamma=cfg.focal_gamma,
+        focal_alpha=cfg.focal_alpha)
+
+
 def train_stage_times(cfg, model, state, priors, batch, reps=5):
     """Device time of each stage of a step (CUDA events between the
     stages of hand-run steps; median of ``reps``): augment, forward, loss
@@ -1147,15 +1199,14 @@ def train_stage_times(cfg, model, state, priors, batch, reps=5):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         db = shard_batch(batch, DEV)
         ev[0].record()
-        images, boxes, num = augment.augment_batch(
+        images, boxes, num, *labels = augment.augment_batch(
             train_loop.step_generator(cfg.seed, s.step, DEV), db["images"], db["boxes"],
-            db["num_boxes"], cfg)
+            db["num_boxes"], cfg, labels=db.get("labels"))
         ev[1].record()
         (loc, conf), new_stats = detector_mod.apply(
             model, {"params": s.params, "batch_stats": s.batch_stats}, images, train=True)
         ev[2].record()
-        total, _ = train_loss.multibox_loss(loc, conf, boxes, num, tpriors,
-                                            use_pallas=cfg.use_pallas)
+        total, _ = step_loss(cfg, loc, conf, boxes, num, tpriors, *labels)
         ev[3].record()
         keys = list(s.params)
         g = dict(zip(keys, torch.autograd.grad(total, [s.params[k] for k in keys])))
@@ -1279,12 +1330,13 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
 # --------------------------------------------------------------------------
 
 
-def photo(rng, h, w):
-    """A photo-like uint8 image (gradients, blocks, noise) and its 1-16
-    boxes: the rectangles' corners, normalized."""
+def photo(rng, h, w, n=None, min_size=0.1, max_size=0.6):
+    """A photo-like uint8 image (gradients, blocks, noise) and its ``n``
+    boxes (default 1-16, drawn): the rectangles' corners, normalized."""
     y, x = np.mgrid[0:h, 0:w].astype(np.float32)
     img = np.stack([200 * y / h, 200 * x / w, 110 + 80 * np.sin(x / 9.0 + y / 13.0)], -1)
-    boxes = random_boxes(rng, (int(rng.integers(1, 17)),), min_size=0.1)
+    n = int(rng.integers(1, 17)) if n is None else n
+    boxes = random_boxes(rng, (n,), min_size=min_size, max_size=max_size)
     for y0, x0, y1, x1 in boxes:
         img[int(y0 * h):int(y1 * h), int(x0 * w):int(x1 * w)] = rng.integers(60, 256, 3)
     img += rng.normal(0, 5, img.shape).astype(np.float32)
@@ -1522,6 +1574,33 @@ def phase_data(rng, card_line, num_images=64):
     return counts
 
 
+def phase_batch_sweep(card_line, iters=4):
+    """``scripts/torch_train_batch_sweep.py``'s default arms (b128,
+    b128_remat, b256, b256_accum2) at configs/voc_train.yaml's model
+    (``Config()``: Inception-v3 299, P = 256, G = 16, greedy matching,
+    use_pallas unset, so no kernel) on its synthetic batch: ms a step
+    (CUDA events over ``iters`` steps), images/s, TFLOP/s, MFU and the peak
+    device memory of each. Every arm must run: none is caught."""
+    sweep = load_script("torch_train_batch_sweep")
+    t0 = time.perf_counter()
+    rows = []
+    with contextlib.redirect_stdout(sys.stderr):
+        _, counts = counted(lambda: [rows.append(sweep.bench_arm(
+            arm, iters, Config(), DEV)) for arm in ("b128", "b128_remat", "b256", "b256_accum2")],
+            {}, "batch sweep")
+    if any("error" in r for r in rows):
+        raise AssertionError(f"batch sweep: {[r for r in rows if 'error' in r]}")
+    emit({"phase": "batch_sweep", "card": card_line,
+          "config": "Config() = configs/voc_train.yaml's model (inception_v3 299, P=256, G=16, "
+                    "greedy matching, bfloat16 backbone), the JAX script's synthetic batch "
+                    "(343-px canvas, 4 boxes an image)",
+          "timing": f"CUDA events over {iters} steps after {sweep.WARMUP}",
+          "mfu_peak_tflops": sweep.PEAK_TFLOPS, "arms": rows, "ok": True, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------------
 # the command-line path: priors → train → detect → evaluate
 # --------------------------------------------------------------------------
@@ -1552,15 +1631,22 @@ def write_records(rng, path, n, canvas, first_id, jpeg=0):
             w.write(rec)
 
 
-def hungarian_on_the_card(gt, num, priors):
-    """B=32, G=16, P=256 Hungarian matching on the card: exact against the
-    port on the CPU and against scipy (indices; first checked optimal, so a
-    tie scipy breaks otherwise reads as such); ms a call (CUDA events, L2
-    evicted) and exit tests (host syncs) a call."""
+def hungarian_on_the_card(gt, num, priors, all_index_equal=True):
+    """Hungarian matching of one batch on the card (phase cli: B=32, G=16,
+    P=256; phase coco_dp: B=256, G=64, P=512): bitwise the port on the CPU,
+    every image an optimal assignment (as scipy's ``linear_sum_assignment``
+    checks it: total benefit within 1e-6 of scipy's, so that a tie scipy
+    breaks otherwise reads as such), and the images index-equal to scipy's
+    counted (with ``all_index_equal``, every one: phase cli's boxes leave no
+    tie; a gt box that overlaps no prior is a tie scipy may break
+    otherwise); ms a call (CUDA events, L2 evicted) and exit tests (host
+    syncs) a call."""
     from scipy.optimize import linear_sum_assignment
 
-    benefit = matching.compute_benefit(dev(gt), dev(priors))
-    got = matching.hungarian_match(benefit, dev(num)).cpu().numpy()
+    gt, tnum = torch.as_tensor(gt).to(DEV), torch.as_tensor(num).to(DEV)
+    benefit = matching.compute_benefit(gt, dev(priors))
+    got = matching.hungarian_match(benefit, tnum).cpu().numpy()
+    num = tnum.cpu().numpy()
     cpu = matching.hungarian_match(benefit.cpu(), torch.from_numpy(num)).numpy()
     if not np.array_equal(got, cpu):
         raise AssertionError("Hungarian on the card differs from the CPU")
@@ -1576,12 +1662,13 @@ def hungarian_on_the_card(gt, num, priors):
                 (got[b, num[b]:] != -1).any() or mine < b64[b][rows, cols].sum() - 1e-6:
             raise AssertionError(f"Hungarian image {b} is not an optimal assignment")
         index_exact += int(np.array_equal(got[b], want))
-    if index_exact != len(num):
+    if all_index_equal and index_exact != len(num):
         raise AssertionError(f"Hungarian: {index_exact} of {len(num)} images equal scipy's")
     matching.reset_exit_tests()
-    ms = time_ms(lambda: matching.hungarian_match(benefit, dev(num)), reps=10, warmup=2)
+    ms = time_ms(lambda: matching.hungarian_match(benefit, tnum), reps=10, warmup=2)
     calls = matching.EXIT_TESTS["calls"]
-    return {"hungarian_ms": ms, "hungarian_exit_tests_per_call":
+    return {"hungarian_shape": f"B={len(num)} G={gt.shape[1]} P={len(priors)}",
+            "hungarian_ms": ms, "hungarian_exit_tests_per_call":
             matching.EXIT_TESTS["tests"] / calls, "hungarian_scipy_index_exact_images":
             index_exact, "hungarian_images": len(num), "hungarian_equals_cpu": True}
 
@@ -1732,7 +1819,7 @@ def phase_cli(rng, card_line):
 # data parallelism: two ranks, an NCCL group, the sharded detect and its CLI
 # --------------------------------------------------------------------------
 
-PAR_STEPS = 4
+PAR_STEPS = 3
 # The parallel phase's tolerances against the one-process run, relative,
 # as measured on an H100 (PERF.md, section 6): step 1's loss,
 # one forward whose BatchNorm statistics sum in another order, with the
@@ -1818,6 +1905,26 @@ def parallel_worker(spec_path) -> int:
     init_data_parallel(backend=spec["backend"], device=spec["device"], timeout_s=300)
     device = resolve_device(spec["device"])
     out.update(world=mesh.world_size(), backend=dist.get_backend(), device=str(device))
+    if spec["kind"] == "coco2":  # phase coco_dp (e): coco_dp's step over the global batch
+        from multibox_tpu_torch.config import parse_config_file
+
+        cfg = dataclasses.replace(parse_config_file(spec["config"]), batch_size=spec["batch"])
+        priors = load_priors(spec["priors"])
+        cfg.num_priors = priors.shape[0]
+        mesh.time_collectives(True)
+        mesh.reset_collective_counts()
+        kernels.reset_launch_counts()
+        state = train_loop.train(cfg, [spec["records"]], priors, spec["logdir"],
+                                 max_steps=spec["steps"], schedule_total=spec["steps"],
+                                 shuffle=False, device=spec["device"])
+        torch.cuda.synchronize()
+        out["coco"] = {"launches": kernels.launch_counts(), "collectives": dict(mesh.COLLECTIVES),
+                       "collective_ms": mesh.collective_ms(),
+                       "digest": tree_digest(state.to_dict()),
+                       "gradient_bytes": sum(v.numel() * v.element_size()
+                                             for v in state.params.values())}
+        write()
+        return 0
     cfg = parallel_config()
     priors = load_priors(spec["priors"])
     steps = spec["steps"]
@@ -2000,11 +2107,12 @@ def check_rank_shapes(rng, cfg, train_rows, detect_rows):
 
     for what, n in (("train", train_rows), ("detect", detect_rows)):
         for name, M, Kd, N, relu in head(n):
-            e = forward_entry(rng, f"{name}_rows{n}", M, Kd, N, relu, torch.float32)
+            e = forward_entry(f"{name}_rows{n}", *matmul_inputs(rng, M, Kd, N, torch.float32),
+                              relu)
             out[f"fused_matmul_{what}_{name}"] = {k: e[k] for k in (
                 "M", "K", "N", "route", "split_k", "max_abs_err", "ms", "plain_ms")}
     for name, M, Kd, N, relu in head(train_rows):
-        e = backward_entry(rng, f"{name}_rows{train_rows}", M, Kd, N, relu)
+        e = backward_entry(f"{name}_rows{train_rows}", *backward_inputs(rng, M, Kd, N), relu)
         out[f"fused_matmul_backward_train_{name}"] = {k: e[k] for k in (
             "M", "K", "N", "max_abs_err", "ms", "plain_ms")}
 
@@ -2270,6 +2378,410 @@ def phase_parallel(rng, card_line, records, priors_path):
     out.update({"ok": True, "launches": total, "seconds": time.perf_counter() - t_phase})
     emit(out)
     return total
+
+
+# --------------------------------------------------------------------------
+# configs/coco_dp.yaml: 80 classes, Hungarian at G=64 P=512, global batch 256
+# --------------------------------------------------------------------------
+
+# COCO 2017's 80 category ids: 1-90 with its gaps
+COCO_IDS = (*range(1, 12), *range(13, 26), 27, 28, *range(31, 45), *range(46, 66), 67, 70,
+            *range(72, 83), *range(84, 91))
+# records: train, eval, and train images that hold MAX_NUM_BBOXES = 64 boxes
+COCO_TRAIN, COCO_EVAL, COCO_FULL = 256, 64, 8
+COCO_STEPS = 4  # COCO_STEPS - 1 steps, then resumed to COCO_STEPS, against it straight
+# the two ranks' global batch (reduced from 256) and steps
+COCO_DP_BATCH, COCO_DP_STEPS = 64, 2
+# (e)'s tolerances against one process, relative, about ten times what the
+# H100 gave (PERF.md, section 6): step 1's loss (measured 3.7e-5) and step
+# 2's (7.4e-5; the phase checks that a halved gradient moves it by more
+# than twice this)
+COCO_DP_TOL = {"step1": 4e-4, "step2": 8e-4}
+
+
+def coco_records(rng, root, canvas):
+    """Seeded JPEGs at COCO-like sizes (500 × 375 and 375 × 500) and a COCO
+    instances file for each split, whose categories are COCO 2017's 80 ids
+    with their gaps: 1-20 boxes an image, 64 in ``COCO_FULL`` training
+    images, a crowd region in a few (skipped, as the dataset CLI does by
+    default) → ``cli.dataset.main --coco --remap_categories`` (the train
+    split with raw canvases of ``canvas`` px) → every record parsed back to
+    its annotation, labels renumbered 1..80. Returns the splits' record
+    files and what was written."""
+    from PIL import Image
+
+    from multibox_tpu_torch.cli import dataset as cli_dataset
+    from multibox_tpu_torch.data.example_proto import parse_detection_example
+    from multibox_tpu_torch.data.tfrecord import read_records
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    cats = [{"id": c, "name": f"category {c}"} for c in COCO_IDS]
+    remap = {c: i + 1 for i, c in enumerate(COCO_IDS)}
+    files, info = {}, {"boxes": 0, "crowd_skipped": 0, "images_with_64_boxes": 0}
+    for split, first, n in (("train", 0, COCO_TRAIN), ("eval", COCO_TRAIN, COCO_EVAL)):
+        coco = {"images": [], "annotations": [], "categories": cats}
+        want = {}
+        for i in range(first, first + n):
+            h, w = (375, 500) if i % 2 else (500, 375)
+            full = split == "train" and i % (COCO_TRAIN // COCO_FULL) == 0
+            img, boxes = photo(rng, h, w, n=64 if full else int(rng.integers(1, 21)),
+                               min_size=0.04, max_size=0.4)
+            ids = rng.choice(COCO_IDS, len(boxes))
+            Image.fromarray(img).save(os.path.join(images, f"im{i}.jpg"), quality=90)
+            coco["images"].append({"id": i, "file_name": f"im{i}.jpg", "height": h, "width": w})
+            for (y0, x0, y1, x1), c in zip(boxes.astype(np.float64), ids):
+                coco["annotations"].append({"image_id": i, "category_id": int(c), "iscrowd": 0,
+                                            "bbox": [x0 * w, y0 * h, (x1 - x0) * w,
+                                                     (y1 - y0) * h]})
+            if i % 40 == 7:
+                coco["annotations"].append({"image_id": i, "category_id": int(ids[0]),
+                                            "iscrowd": 1, "bbox": [0.0, 0.0, w / 2, h / 2]})
+                info["crowd_skipped"] += 1
+            want[str(i)] = (boxes, [remap[int(c)] for c in ids])
+            info["boxes"] += len(boxes)
+            info["images_with_64_boxes"] += full
+        path = os.path.join(root, f"coco_{split}.json")
+        with open(path, "w") as f:
+            json.dump(coco, f)
+        extra = ["--store_raw_canvas", str(canvas)] if split == "train" else []
+        with contextlib.redirect_stdout(sys.stderr):
+            run_cli(cli_dataset.main, ["--annotations", path, "--coco", "--remap_categories",
+                                       "--image_root", images, "--output_prefix",
+                                       os.path.join(root, split, split)] + extra)
+        with open(os.path.join(root, split, "label_map.json")) as f:
+            if json.load(f) != {str(k): v for k, v in remap.items()}:
+                raise AssertionError("dataset CLI: the category remap is not 1..80 in id order")
+        files[split] = sorted(os.path.join(root, split, f)
+                              for f in os.listdir(os.path.join(root, split))
+                              if f.endswith(".tfrecord"))
+        parsed = {}
+        for rec in read_records(files[split]):
+            ex = parse_detection_example(rec)
+            parsed[ex["image_id"]] = ex
+        if sorted(parsed) != sorted(want):
+            raise AssertionError(f"dataset CLI ({split}): ids {sorted(parsed)[:4]}")
+        for image_id, ex in parsed.items():
+            boxes, labels = want[image_id]
+            if (list(ex["labels"]) != labels
+                    or not np.allclose(ex["boxes"], boxes, rtol=0, atol=1e-6)
+                    or ("raw" in ex) != (split == "train")):
+                raise AssertionError(f"dataset CLI ({split}): record {image_id} differs "
+                                     "from its annotation")
+    shutil.rmtree(images)
+    return files, info
+
+
+def coco_config_file(root):
+    """configs/coco_dp.yaml as shipped plus the run's own settings (every
+    step logged, one checkpoint kept), written to a copy in ``root``: the
+    shipped file is not edited."""
+    with open("configs/coco_dp.yaml") as f:
+        text = f.read()
+    path = os.path.join(root, "coco_dp_run.yaml")
+    with open(path, "w") as f:
+        f.write(text + "\n# the smoke run's settings\nlog_every_steps: 1\nkeep_checkpoints: 1\n")
+    return path
+
+
+@contextlib.contextmanager
+def stream_resumed_at(step):
+    """Within the block, each ``DetectionDataset`` that ``train.loop.train``
+    makes yields ``step`` batches of its stream, then the stream a run
+    resumed at ``step`` reads (the same records, shuffled with the seed
+    ``cfg.seed + step``): one process then trains on the batches that a
+    run stopped at ``step`` and resumed trains on."""
+    real = train_loop.DetectionDataset
+
+    def spliced(*args, **kwargs):
+        def batches():
+            with contextlib.closing(iter(real(*args, **kwargs))) as first:
+                for _ in range(step):
+                    yield next(first)
+            with contextlib.closing(iter(real(*args, **dict(
+                    kwargs, seed=kwargs["seed"] + step)))) as rest:
+                yield from rest
+        return batches()
+
+    train_loop.DetectionDataset = spliced
+    try:
+        yield
+    finally:
+        train_loop.DetectionDataset = real
+
+
+def run_cli(main, args):
+    if main(args):
+        raise AssertionError(f"{main.__module__} {' '.join(args)} failed")
+
+
+def checkpoint_digest(logdir):
+    return tree_digest(CheckpointManager(logdir).restore_raw(device="cpu"))
+
+
+def head_inputs_on_card(gen, M, Kd, N):
+    """:func:`backward_inputs`' distributions, drawn on the card from the
+    CUDA generator ``gen`` (the Confidences weight is 1 GB)."""
+    x = torch.randn(M, Kd, generator=gen, device=DEV).clamp_min_(0)
+    w = torch.randn(Kd, N, generator=gen, device=DEV) / math.sqrt(Kd)
+    b = torch.randn(N, generator=gen, device=DEV) * 0.1
+    return x, w, b, torch.randn(M, N, generator=gen, device=DEV)
+
+
+def phase_coco_dp(rng, card_line):
+    """configs/coco_dp.yaml as shipped (Inception-v3 299, 80 classes with
+    per-class NMS, P = 512 k-means priors, G = 64, Hungarian matching with
+    dense matching at 0.5, label_offset 1, global batch 256, bf16 backbone,
+    f32 head, use_pallas unset: B1 is its one kernel) through the entry
+    points a user calls: (a) COCO-format files with the 80 gapped ids →
+    ``cli.dataset.main --remap_categories``; (b) ``cli.priors.main``
+    (k-means, 512); (c) ``cli.train.main`` at the global batch of 256 in one
+    process for 3 steps (its peak memory), resumed to 4, against 4 straight steps
+    in one process on the same batches (losses and checkpoint bitwise);
+    stage times of a step, and Hungarian matching on the card at the step's
+    own boxes (B=256, G=64, P=512); (d) ``cli.detect.main`` and
+    ``cli.evaluate.main`` on the eval records, B1 exact at the path's
+    inputs; B2 and B2' at the head's shapes (the route a user with
+    use_pallas: true takes); (e) two ranks of 32 sharing the card over gloo
+    (the global batch reduced to 64) against one process. Returns the launch
+    counts and the kernel rows."""
+    from multibox_tpu_torch.cli import detect as cli_detect
+    from multibox_tpu_torch.cli import evaluate as cli_evaluate
+    from multibox_tpu_torch.cli import priors as cli_priors
+    from multibox_tpu_torch.cli import train as cli_train
+    from multibox_tpu_torch.config import parse_config_file
+    from multibox_tpu_torch.data.pipeline import DetectionDataset
+    from multibox_tpu_torch.priors import load_priors
+
+    root = os.path.abspath(os.path.join(".work", "chip_smoke_coco_dp"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    quiet = contextlib.redirect_stdout(sys.stderr)  # the CLIs' own prints
+    shipped = parse_config_file("configs/coco_dp.yaml")
+    P, C, G = shipped.num_priors, shipped.num_classes, shipped.max_num_bboxes
+    canvas = max(int(shipped.input_size * 1.15), shipped.input_size)
+    out = {"phase": "coco_dp", "card": card_line,
+           "config": f"configs/coco_dp.yaml as shipped (inception_v3 {shipped.input_size}, "
+                     f"C={C}, P={P}, G={G}, global batch {shipped.batch_size}, matching "
+                     f"{shipped.matching}, multi_match_iou {shipped.multi_match_iou}, "
+                     f"label_offset {shipped.label_offset}, use_pallas {shipped.use_pallas}, "
+                     f"{shipped.compute_dtype} backbone, float32 head, augmentation on a "
+                     f"{canvas}-px canvas)",
+           "reduced": [f"steps: {COCO_STEPS - 1} resumed to {COCO_STEPS}", f"records: {COCO_TRAIN} train, "
+                       f"{COCO_EVAL} eval", f"(e): global batch {COCO_DP_BATCH} (2 x "
+                       f"{COCO_DP_BATCH // 2}), {COCO_DP_STEPS} steps"]}
+    total = {}
+
+    # (a) records, (b) priors
+    t0 = time.perf_counter()
+    files, info = coco_records(rng, root, canvas)
+    out["records"] = dict(info, train=COCO_TRAIN, eval=COCO_EVAL, seconds=time.perf_counter() - t0,
+                          categories="COCO 2017's 80 ids, remapped to 1..80")
+    priors_path = os.path.join(root, "priors.pkl")
+    t0 = time.perf_counter()
+    with quiet:
+        run_cli(cli_priors.main, ["--tfrecords", *files["train"], "--output", priors_path,
+                                  "--mode", "kmeans", "--num_priors", str(P)])
+    priors = load_priors(priors_path)
+    if priors.shape != (P, 4) or not np.isfinite(priors).all():
+        raise AssertionError(f"k-means priors {priors.shape}")
+    out["priors_seconds"] = time.perf_counter() - t0
+
+    # (c) the train CLI at the global batch of 256 in one process
+    logdir = os.path.join(root, "logdir")
+    cfg_path = coco_config_file(root)
+    args = ["--tfrecords", *files["train"], "--priors", priors_path, "--logdir", logdir,
+            "--config", cfg_path, "--schedule_total_steps", str(COCO_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    matching.reset_exit_tests()
+    t0 = time.perf_counter()
+    with quiet:
+        counted(lambda: run_cli(cli_train.main, args + [
+            "--max_number_of_steps", str(COCO_STEPS - 1)]), {}, "coco_dp train CLI")
+    train_seconds, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    cfg = parse_config_file(cfg_path)
+    cfg.num_priors = P
+    hung_calls, hung_tests = matching.EXIT_TESTS["calls"], matching.EXIT_TESTS["tests"]
+    if hung_calls != (COCO_STEPS - 1) * cfg.grad_accum_steps:
+        raise AssertionError(f"{hung_calls} Hungarian calls in {COCO_STEPS - 1} steps")
+    with quiet:
+        counted(lambda: run_cli(cli_train.main, args + ["--max_number_of_steps",
+                                                        str(COCO_STEPS)]),
+                {}, "coco_dp train CLI resumed")
+    logged = logged_steps(logdir)
+    if [r["step"] for r in logged] != list(range(1, COCO_STEPS + 1)) or \
+            CheckpointManager(logdir).all_steps() != [COCO_STEPS]:
+        raise AssertionError(f"train CLI: logged {[r['step'] for r in logged]}, checkpoints "
+                             f"{CheckpointManager(logdir).all_steps()}")
+    # 4 straight steps in one process, on the batches the stopped and resumed
+    # run read: the same losses and, bit for bit, the same checkpoint
+    straight = os.path.join(root, "straight")
+    with stream_resumed_at(COCO_STEPS - 1), quiet:
+        counted(lambda: train_loop.train(cfg, files["train"], priors, straight,
+                                         max_steps=COCO_STEPS, schedule_total=COCO_STEPS,
+                                         device=DEV), {}, "coco_dp straight run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_cli = [r["loss"] for r in logged]
+    loss_straight = [r["loss"] for r in logged_steps(straight)]
+    if loss_cli != loss_straight or not all(map(math.isfinite, loss_cli)):
+        raise AssertionError(f"resumed run's losses {loss_cli}, straight {loss_straight}")
+    if checkpoint_digest(logdir) != checkpoint_digest(straight):
+        raise AssertionError("the resumed run's checkpoint differs from the straight run's")
+    shutil.rmtree(straight)
+    ms_logged = [cfg.batch_size * 1e3 / r["images_per_sec"] for r in logged]
+    out["train"] = {
+        "setting": "as shipped", "peak_memory_bytes": peak, "seconds_3_steps": train_seconds,
+        "loss": loss_cli, "resumed_equals_straight": "losses and checkpoint bitwise",
+        "ms_per_step_logged": ms_logged,
+        "hungarian_calls_per_step": hung_calls / (COCO_STEPS - 1),
+        "hungarian_exit_tests_per_call": hung_tests / hung_calls,
+        "metrics_at_4": {k: v for k, v in logged[-1].items() if k not in ("step", "time")}}
+
+    # a step's stages, and Hungarian on the card at the step's own boxes
+    model = inference.build_model(cfg, P, device=DEV)
+    state = train_state.create_train_state(cfg, model, SEED, P, device=DEV)
+    stream = iter(DetectionDataset(files["train"], batch_size=cfg.batch_size, canvas_size=canvas,
+                                   max_num_bboxes=G, label_offset=cfg.label_offset,
+                                   num_classes=C))
+    host = next(stream)
+    stream.close()
+    host = {k: host[k] for k in ("images", "boxes", "num_boxes", "labels")}
+    if int(host["num_boxes"].max()) != G or not (0 <= host["labels"].min() and
+                                                  host["labels"].max() < C):
+        raise AssertionError(f"the batch holds {host['num_boxes'].max()} boxes at most, "
+                             f"labels {host['labels'].min()}..{host['labels'].max()}")
+    rows = cfg.batch_size // cfg.grad_accum_steps
+    out["stage_ms"] = dict(train_stage_times(cfg, model, state, priors, {
+        k: v[:rows] for k, v in host.items()}, reps=3), rows=rows)
+    del model, state
+    db = shard_batch(host, DEV)
+    _, boxes, num, _ = augment.augment_batch(
+        train_loop.step_generator(cfg.seed, 0, DEV), db["images"], db["boxes"],
+        db["num_boxes"], cfg, labels=db["labels"])
+    del db
+    out["hungarian"] = hungarian_on_the_card(boxes, num, priors, all_index_equal=False)
+    out["hungarian"]["boxes_after_augmentation_max"] = int(num.max())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) detect and evaluate with the checkpoint: B1 at the path's inputs
+    det_path = os.path.join(root, "detections.pkl")
+    batches = -(-COCO_EVAL // cfg.batch_size)
+    t0 = time.perf_counter()
+    with nms_inputs_seen() as seen, quiet:
+        _, counts = counted(lambda: run_cli(cli_detect.main, [
+            "--tfrecords", *files["eval"], "--priors", priors_path, "--checkpoint_path", logdir,
+            "--output", det_path, "--config", cfg_path]), {"nms": batches}, "coco_dp detect CLI")
+    detect_seconds = time.perf_counter() - t0
+    add_counts(total, counts)
+    with quiet:
+        run_cli(cli_evaluate.main, ["--tfrecords", *files["eval"], "--detections", det_path,
+                                    "--config", cfg_path])
+    with open(det_path, "rb") as f:
+        results = pickle.load(f)
+    check_results(results, COCO_EVAL, cfg.max_detections)
+    classes = np.concatenate([r["classes"] for r in results])
+    metrics = cli_evaluate.evaluate(results, files["eval"], cfg)
+    if not (len(classes) and 0 <= classes.min() and classes.max() < C) or \
+            not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"detections' classes {classes.min()}..{classes.max()}, "
+                             f"metrics {metrics}")
+    shape = tuple(seen[0][0].shape)
+    if shape[1:] != (min(cfg.detect_candidates, P * C), 4):
+        raise AssertionError(f"the per-class sweep gave B1 {shape}")
+    nms_row = nms_at_path_inputs("coco_dp", seen)
+    nms_row["max_coordinate_with_class_offsets"] = float(seen[0][0].max())
+    out["detect"] = {"seconds": detect_seconds, "images": len(results),
+                     "detections": len(classes), "classes_seen": int(len(set(classes.tolist()))),
+                     "eval_metrics": metrics, "nms": nms_row, "launches": counts}
+    shutil.rmtree(logdir)  # a checkpoint of some 3.4 GB
+    del seen
+
+    # B2 and B2' at the head's shapes: 256 rows (the step's batch) and 32 (a rank's)
+    head, head_bwd = {}, {}
+    draw = torch.Generator(device=DEV).manual_seed(SEED)
+    for M in (cfg.batch_size, COCO_DP_BATCH // 2):
+        for name, Kd, N in (("Locations", 6144, 4 * P), ("Confidences", 6144, P * C)):
+            x, w, bias, g = head_inputs_on_card(draw, M, Kd, N)
+            e = forward_entry(f"coco_dp_{name}_rows{M}", x, w, bias, False)
+            head[f"{name}_rows{M}"] = {k: e[k] for k in (
+                "M", "K", "N", "route", "split_k", "blocks", "max_abs_err", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "share_of_bound")}
+            b = backward_entry(f"coco_dp_{name}_rows{M}", x, w, bias, g, False)
+            head_bwd[f"{name}_rows{M}"] = {k: b[k] for k in (
+                "M", "K", "N", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "share_of_bound")}
+            del x, w, bias, g
+            torch.cuda.empty_cache()
+    out.update({"fused_matmul_head": head, "fused_matmul_backward_head": head_bwd})
+
+    # (e) two ranks of 32 sharing the card over gloo against one process at 64
+    cards = torch.cuda.device_count()
+    dp_cfg = dataclasses.replace(cfg, batch_size=COCO_DP_BATCH)
+    records_b = os.path.join(root, "train_rank_order.tfrecord")
+    rank_ordered_records(files["train"][0], records_b, 2, COCO_DP_BATCH // 2)
+    # one process, and what step 2's tolerance is held against: the same
+    # run with half the gradient (half the learning rate, as in phase parallel)
+    loss_a = {}
+    for name, run_cfg in (("one_process", dp_cfg), ("halved_gradient", dataclasses.replace(
+            dp_cfg, initial_learning_rate=dp_cfg.initial_learning_rate / 2))):
+        logdir_a = os.path.join(root, "dp_a")
+        counted(lambda: train_loop.train(run_cfg, files["train"], priors, logdir_a,
+                                         max_steps=COCO_DP_STEPS, schedule_total=COCO_DP_STEPS,
+                                         shuffle=False, device=DEV), {}, f"coco_dp (e) {name}")
+        loss_a[name] = [r["loss"] for r in logged_steps(logdir_a)]
+        shutil.rmtree(logdir_a)
+        gc.collect()
+        torch.cuda.empty_cache()
+    loss_a, half = loss_a["one_process"], rel(loss_a["halved_gradient"][1],
+                                              loss_a["one_process"][1])
+    if not COCO_DP_TOL["step2"] < half / 2:
+        raise AssertionError(f"(e): a halved gradient moves step 2's loss by {half}: the "
+                             f"tolerance {COCO_DP_TOL['step2']} would not see it")
+    spec = {"kind": "coco2", "backend": "gloo" if cards < 2 else None,
+            "device": "cuda:0" if cards < 2 else None, "priors": priors_path,
+            "records": records_b, "config": cfg_path, "batch": COCO_DP_BATCH,
+            "steps": COCO_DP_STEPS, "logdir": os.path.join(root, "dp_b")}
+    t0 = time.perf_counter()
+    ranks = require_ranks(root, "coco2", *run_ranks(root, "coco2", spec, 2, timeout=600))
+    seconds_ranks = time.perf_counter() - t0
+    logged_b = logged_steps(spec["logdir"])
+    loss_b = [r["loss"] for r in logged_b]
+    diffs = [rel(b, a) for a, b in zip(loss_a, loss_b)]
+    if len(loss_b) != COCO_DP_STEPS or not (diffs[0] <= COCO_DP_TOL["step1"] and
+                                             diffs[1] <= COCO_DP_TOL["step2"]):
+        raise AssertionError(f"(e) losses {loss_b} against one process {loss_a}: {diffs}")
+    if ranks[0]["coco"]["digest"] != ranks[1]["coco"]["digest"]:
+        raise AssertionError("(e): the two ranks' states differ after the run")
+    zero = {k: 0 for k in counts}
+    if any(r["coco"]["launches"] != zero for r in ranks):
+        raise AssertionError(f"(e) launches {[r['coco']['launches'] for r in ranks]}")
+    params = sum(p.numel() for p in inference.build_model(cfg, P, device="cpu").parameters())
+    rank0 = ranks[0]["coco"]
+    if rank0["gradient_bytes"] != 4 * params:
+        raise AssertionError(f"gradient all-reduce {rank0['gradient_bytes']} bytes, the model "
+                             f"has {params} float32 parameters")
+    out["two_ranks"] = {
+        "ranks": "two processes sharing one card (gloo, CUDA tensors); times not a scaling "
+                 "figure" if cards < 2 else "two cards, one a rank (NCCL)",
+        "backend": ranks[0]["backend"], "loss_one_process": loss_a, "loss": loss_b,
+        "rel_diff_vs_one_process": diffs, "tolerance": COCO_DP_TOL,
+        "step2_rel_diff_of_a_halved_gradient": half, "replicas_bitwise_equal": True,
+        "ms_per_step": [COCO_DP_BATCH * 1e3 / r["images_per_sec"] for r in logged_b],
+        "parameters": params, "gradient_all_reduce_bytes": rank0["gradient_bytes"],
+        "collectives_per_step": {k: v / COCO_DP_STEPS for k, v in rank0["collectives"].items()},
+        "collective_ms_per_step_rank0": {k: v / COCO_DP_STEPS
+                                         for k, v in rank0["collective_ms"].items()},
+        "seconds": seconds_ranks}
+    shutil.rmtree(root, ignore_errors=True)  # the ranks' checkpoint, the records
+    out.update({"ok": True, "launches": total, "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    return total, {"nms_coco_dp": nms_row, "fused_matmul_coco_dp": head,
+                   "fused_matmul_backward_coco_dp": head_bwd}
 
 
 # --------------------------------------------------------------------------
@@ -2657,9 +3169,12 @@ def phase_mobilenet(rng, gen, card_line, train_steps=6):
              shipped.bottleneck_features, True),
             ("Locations", B, flat, P * 4, False),
             ("Confidences", B, flat, P * shipped.num_classes, False))
-    rows["fused_matmul_mobilenet"] = [forward_entry(rng, name, M, Kd, N, relu, torch.float32)
-                                      for name, M, Kd, N, relu in head]
-    rows["fused_matmul_backward_mobilenet"] = [backward_entry(rng, *shape) for shape in head]
+    rows["fused_matmul_mobilenet"] = [
+        forward_entry(name, *matmul_inputs(rng, M, Kd, N, torch.float32), relu)
+        for name, M, Kd, N, relu in head]
+    rows["fused_matmul_backward_mobilenet"] = [
+        backward_entry(name, *backward_inputs(rng, M, Kd, N), relu)
+        for name, M, Kd, N, relu in head]
     for entry in rows["fused_matmul_mobilenet"]:
         if entry["name"] in ("Locations", "Confidences") and entry["route"] != "skinny":
             raise AssertionError(f"mobilenet {entry['name']} took route {entry['route']}")
@@ -2781,11 +3296,12 @@ def http_run(base, jpegs, clients, per_client):
             "codes": sorted(set(codes))}, bodies
 
 
-def http_phase(export_dir, rng, windows=(40.0, 2.0)):
+def http_phase(export_dir, rng, windows=(40.0,)):
     """The daemon in-process on 127.0.0.1 over the batch-1/32 export: 8 and
     32 concurrent JPEG ``/detect`` clients and one ``/detect_batch``, at
-    each window; ``/stats``' device batches; one request alone against the
-    exported program called directly (the same batch-1 program: equal)."""
+    each window (the serve bench sweeps windows and clients after it);
+    ``/stats``' device batches; one request alone against the exported
+    program called directly (the same batch-1 program: equal)."""
     import base64
     import threading
     import urllib.request
@@ -2814,7 +3330,7 @@ def http_phase(export_dir, rng, windows=(40.0, 2.0)):
         for window in windows:
             srv.service.batch_window_s = window / 1e3
             row = {}
-            for clients, per_client in ((8, 12), (32, 6)):
+            for clients, per_client in ((8, 6), (32, 3)):
                 before = get("/stats")
                 stats, bodies = http_run(base, jpegs, clients, per_client)
                 after = get("/stats")
@@ -2860,6 +3376,48 @@ def http_phase(export_dir, rng, windows=(40.0, 2.0)):
     return out
 
 
+def load_script(name):
+    """``scripts/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# scripts/torch_serve_bench.py's sweep in phase serve: clients, windows (ms),
+# requests a client, and the admission depth of the arm that overloads
+BENCH_CLIENTS, BENCH_WINDOWS, BENCH_REQUESTS, BENCH_DEPTH = (1, 8, 32, 64), (2, 5, 40), 3, 16
+
+
+def serve_bench(export_dir):
+    """``scripts/torch_serve_bench.py`` on the batch-1/32 export: the
+    micro-batching daemon at each window and the ``--max_batch 1`` control
+    arm under 1-64 clients, then 64 clients against a queue of
+    ``BENCH_DEPTH``, which must shed with 429s. Its rows: no request
+    failed, each one answered or shed (the control arm's queue holds 2
+    requests by default, so it sheds too)."""
+    bench = load_script("torch_serve_bench")
+    clients = [str(c) for c in BENCH_CLIENTS]
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = bench.main(["--export_dir", export_dir, "--concurrency", *clients,
+                           "--requests", str(BENCH_REQUESTS),
+                           "--windows", *map(str, BENCH_WINDOWS)])
+        overload = bench.main(["--export_dir", export_dir, "--concurrency", clients[-1],
+                               "--requests", str(BENCH_REQUESTS), "--windows", "40",
+                               "--max_queue_depths", str(BENCH_DEPTH), "--skip_unbatched"])
+    configs = len(BENCH_WINDOWS) + 1
+    if len(rows) != configs * len(BENCH_CLIENTS) or len(overload) != 1 or any(
+            r["errors"] or r["requests"] + r["shed_429"] != r["concurrency"] * BENCH_REQUESTS
+            for r in rows + overload):
+        raise AssertionError(f"serve bench rows {rows + overload}")
+    if overload[0]["errors"] or overload[0]["shed_429"] < 1:
+        raise AssertionError(f"serve bench at a queue of {BENCH_DEPTH}: {overload}")
+    return rows + overload
+
+
 def phase_serve(rng, gen, card_line):
     """The deployment path at configs/cub_detect.yaml's full width with
     use_pallas=True (Inception-v3 299, P = 256, batch 32, K = 10, bf16
@@ -2869,9 +3427,9 @@ def phase_serve(rng, gen, card_line):
     tfrecords written from the seed) → ``serving.load_exported`` on the card
     → warmup → each program bitwise against the live
     ``apply_and_postprocess`` on the same images, with B1, B2 and B3a
-    counted inside the programs' calls → the HTTP daemon
-    (``serve.make_server``) under 8 and 32 clients at the 40 ms and 2 ms
-    windows → int8's routes exact against int64. Then
+    counted inside the programs' calls → int8's routes exact against
+    int64 → the HTTP daemon (``serve.make_server``) under 8 and 32 clients
+    at the 40 ms window → the serve bench (:func:`serve_bench`). Then
     configs/ssd_multiscale.yaml with flip_tta: true at batch 32 (B1 on its
     global-keys route at 2 × 9,468 = 18,936 boxes an image, exact at the
     path's own inputs). Returns the launch counts and the kernel rows."""
@@ -3002,6 +3560,14 @@ def phase_serve(rng, gen, card_line):
         raise AssertionError(f"HTTP run launch counts {counts}")
     add_counts(total, counts)
     out.update({"http": http, "http_launches": counts})
+    kernels.reset_launch_counts()
+    out["serve_bench"] = serve_bench(os.path.join(root, "f32"))
+    counts = kernels.launch_counts()
+    if counts["nms"] < 1 or counts["nms"] * 3 != counts["fused_matmul"] or \
+            counts["nms"] != counts["box_decode"]:
+        raise AssertionError(f"serve bench launch counts {counts}")
+    add_counts(total, counts)
+    out["serve_bench_launches"] = counts
     shutil.rmtree(root, ignore_errors=True)
 
     # SSD with flip TTA: 2 x 9,468 candidates an image into B1
@@ -3080,34 +3646,43 @@ def main() -> int:
           "fused_matmul_backward": backward})
 
     gen = torch.Generator().manual_seed(SEED)
-    counts, variables, priors = phase_detect(rng, gen, card_line, args.profile)
-    phase_detect_folded(rng, variables, priors)
+    seconds = {"build_and_kernels": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    counts, variables, priors = timed("detect", phase_detect, rng, gen, card_line,
+                                      args.profile)
+    timed("detect_folded", phase_detect_folded, rng, variables, priors)
     del variables
-    torch.cuda.empty_cache()
-    train_counts = phase_train(rng, card_line, args.profile)
-    torch.cuda.empty_cache()
-    data_counts = phase_data(rng, card_line)
-    torch.cuda.empty_cache()
-    cli_counts, records = phase_cli(rng, card_line)
-    torch.cuda.empty_cache()
-    # its own generator: the later phases' draws stay as they were
-    parallel_counts = phase_parallel(np.random.default_rng(SEED + 10), card_line, records,
-                                     os.path.join(os.path.dirname(records), "priors.pkl"))
-    torch.cuda.empty_cache()
-    ssd_counts, ssd_rows = phase_ssd(rng, gen, card_line, records)
-    mobilenet_counts, mobilenet_rows = phase_mobilenet(rng, gen, card_line)
-    torch.cuda.empty_cache()
-    serve_counts, serve_rows = phase_serve(rng, gen, card_line)
+    train_counts = timed("train", phase_train, rng, card_line, args.profile)
+    sweep_counts = timed("batch_sweep", phase_batch_sweep, card_line)
+    data_counts = timed("data", phase_data, rng, card_line)
+    cli_counts, records = timed("cli", phase_cli, rng, card_line)
+    # their own generators: the later phases' draws stay as they were
+    parallel_counts = timed("parallel", phase_parallel, np.random.default_rng(SEED + 10),
+                            card_line, records,
+                            os.path.join(os.path.dirname(records), "priors.pkl"))
+    coco_counts, coco_rows = timed("coco_dp", phase_coco_dp, np.random.default_rng(SEED + 11),
+                                   card_line)
+    ssd_counts, ssd_rows = timed("ssd", phase_ssd, rng, gen, card_line, records)
+    mobilenet_counts, mobilenet_rows = timed("mobilenet", phase_mobilenet, rng, gen, card_line)
+    serve_counts, serve_rows = timed("serve", phase_serve, rng, gen, card_line)
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the eight paths: detect (B1, B2, B3a), train (B2, B3b, B4),
-    # data (B1 in visualize), cli (B1), parallel (B2, B3b, B4 on every rank;
-    # B1, B2, B3a in the sharded detect; B1 in the one-process detect CLI),
-    # ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve (B1, B2, B3a
-    # inside the exported programs; B1 with flip TTA)
-    paths = (counts, train_counts, data_counts, cli_counts, parallel_counts, ssd_counts,
-             mobilenet_counts, serve_counts)
+    # launches on the ten paths: detect (B1, B2, B3a), train (B2, B3b, B4),
+    # batch_sweep (none: use_pallas unset), data (B1 in visualize), cli
+    # (B1), parallel (B2, B3b, B4 on every rank; B1, B2, B3a in the sharded
+    # detect; B1 in the one-process detect CLI), coco_dp (B1 in the detect
+    # CLI), ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve (B1, B2,
+    # B3a inside the exported programs; B1 with flip TTA)
+    paths = (counts, train_counts, sweep_counts, data_counts, cli_counts, parallel_counts,
+             coco_counts, ssd_counts, mobilenet_counts, serve_counts)
     for e in entries + [backward]:
         e["launches"] = sum(c.get(e["name"], 0) for c in paths)
     # the new paths' shapes beside each kernel's main row
@@ -3115,16 +3690,20 @@ def main() -> int:
     by_name["nms"].update(ssd_p9468_b32=ssd_rows["nms_ssd"],
                           ssd_multiclass_p1024=ssd_rows["nms_ssd_multiclass"],
                           mobilenet_p128_b64=mobilenet_rows["nms_mobilenet"],
-                          ssd_flip_tta_p18936_b32=serve_rows["nms_ssd_flip_tta"])
+                          ssd_flip_tta_p18936_b32=serve_rows["nms_ssd_flip_tta"],
+                          coco_dp_p1024_c80=coco_rows["nms_coco_dp"])
     by_name["match"].update(ssd_global_scratch=ssd_rows["match_ssd"],
                             mobilenet_p128=mobilenet_rows["match_mobilenet"])
     by_name["fused_matmul"]["mobilenet_head"] = mobilenet_rows["fused_matmul_mobilenet"]
+    by_name["fused_matmul"]["coco_dp_head"] = coco_rows["fused_matmul_coco_dp"]
     backward["mobilenet_head"] = mobilenet_rows["fused_matmul_backward_mobilenet"]
+    backward["coco_dp_head"] = coco_rows["fused_matmul_backward_coco_dp"]
     on_path = {"nms", "fused_matmul", "box_decode", "box_encode", "match"}
     for e in entries:
         if e["name"] in on_path and e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on the main path")
 
+    emit({"phase": "timing", "seconds": seconds, "total": time.perf_counter() - t_start})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

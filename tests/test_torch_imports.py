@@ -42,13 +42,15 @@ from multibox_tpu_torch.utils.checkpoint import CheckpointManager
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "multibox_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multibox_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multibox_tpu", "bench")
 
 
 def port_sources():
+    """The package, chip_smoke.py and the port's scripts (``scripts/torch_*.py``)."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
-    return files
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(files) > 15 and len(scripts) >= 5
+    return files + scripts
 
 
 def imported_roots(path):

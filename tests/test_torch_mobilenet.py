@@ -301,12 +301,15 @@ def tiny_batch(rng, size, labels=None):
     return batch
 
 
-def train_step_against_jax(cfg_kw, model_kw, init, priors, batch):
+def train_step_against_jax(cfg_kw, model_kw, init, priors, batch, leaf_atol=None,
+                           moved=False):
     """One step of both packages from the same initial variables ``init``
     (numpy ``params`` and ``batch_stats``), float64 backbone
     (``tests/test_torch_train.py``'s docstring): loss, metrics, every
-    parameter, running statistic and EMA shadow after it. Returns the
-    port's metrics."""
+    parameter, running statistic and EMA shadow after it (atol 1e-5, or
+    ``leaf_atol``'s for a leaf it names). With ``moved``, the JAX step must
+    also move every leaf by more than the comparison's tolerance, so that
+    an update the port dropped fails. Returns the port's metrics."""
     P = priors.shape[0]
     with jax.enable_x64(True):
         cfg = JConfig(**cfg_kw)
@@ -336,8 +339,17 @@ def train_step_against_jax(cfg_kw, model_kw, init, priors, batch):
     tstate, tm_metrics = tstep(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     metrics = [{k: float(v) for k, v in tm_metrics.items()}]
     assert_metrics_close(metrics, jmetrics)
-    assert_trees_close(final, tstate, atol=1e-5)
+    assert_trees_close(final, tstate, atol=1e-5, leaf_atol=leaf_atol)
     assert tstate.step == 1
+    if moved:
+        start = convert.flax_to_torch({"params": init["params"], "batch_stats": init["batch_stats"],
+                                       "ema": init["params"]}, device="cpu")
+        want = convert.flax_to_torch(final, device="cpu")
+        for coll, tensors in want.items():
+            for k, v in tensors.items():
+                tol = (leaf_atol or {}).get(k, 1e-5) + 1e-5 * float(v.abs().max())
+                move = float((v.double() - start[coll][k].double()).abs().max())
+                assert move > tol, f"{coll}/{k}: the JAX step moves it by {move} only"
     return metrics[0]
 
 

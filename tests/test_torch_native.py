@@ -14,6 +14,8 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -140,8 +142,11 @@ def test_table_crc_off_x86_is_the_same_crc(monkeypatch, tmp_path):
 
 def test_stream_closed_early_stops_its_reader_thread(files):
     """A generator closed mid-file (as a shuffled or repeated dataset drops
-    it) closes its stream: the reader thread is joined."""
+    it) closes its stream: the reader thread is joined. The kernel lists a
+    joined thread in ``/proc/self/task`` until it reaps it, so the count is
+    polled back to its start under a deadline before it is held to it."""
     before = len(os.listdir("/proc/self/task"))
+    python_threads = threading.active_count()
     for _ in range(20):
         stream = ttf.read_records(files["paths"])
         next(stream)
@@ -153,7 +158,11 @@ def test_stream_closed_early_stops_its_reader_thread(files):
     for _ in range(12):  # a few epochs of 17 records
         next(batches)
     batches.close()
+    deadline = time.monotonic() + 5.0
+    while len(os.listdir("/proc/self/task")) > before and time.monotonic() < deadline:
+        time.sleep(0.01)
     assert len(os.listdir("/proc/self/task")) <= before
+    assert threading.active_count() <= python_threads
 
 
 def test_read_records_takes_the_native_reader_and_never_falls_back(files, monkeypatch):

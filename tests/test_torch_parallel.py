@@ -72,7 +72,20 @@ STEP_CASES = {
     "one_update": dict(TINY, clip_gradient_norm=1.0),
     "grad_accum2": dict(TINY, clip_gradient_norm=1.0, grad_accum_steps=2),
     "augmented": dict(TINY, clip_gradient_norm=1.0, augment=True, color_distort=True),
+    # configs/coco_dp.yaml's loss: 80 classes, Hungarian with dense matching
+    "coco_dp": dict(TINY, num_classes=80, matching="hungarian", multi_match_iou=0.5,
+                    label_offset=1),
 }
+# the coco_dp case's labels, after label_offset: classes up to 79
+COCO_LABELS = np.array([[79, 0, 41], [12, 79, 5]], np.int32)
+
+
+def case_world(kw):
+    """``tiny_world``'s priors and batch, with labels for a multi-class case."""
+    priors, batch = tiny_world()
+    if kw.get("num_classes", 1) > 1:
+        batch = dict(batch, labels=COCO_LABELS)
+    return priors, batch
 TRAIN_KW = dict(backbone="mobilenet_v2", mobilenet_width=0.5, input_size=75, num_priors=8,
                 batch_size=4, max_num_bboxes=3, compute_dtype="float64",
                 steps_per_host_transfer=2, log_every_steps=1, initial_learning_rate=0.003,
@@ -119,11 +132,11 @@ def rank_ordered(src, dst, world, local):
 def run_jax(kw, steps):
     """tests/test_torch_train.py's ``run_jax`` (float64 backbone) where the
     optimizer is a chain with clipping: its RMSProp state is found by its
-    ``nu``."""
-    priors, batch = tiny_world()
+    ``nu``; a multi-class case's head has its classes and its batch labels."""
+    priors, batch = case_world(kw)
     with jax.enable_x64(True):
         cfg = JConfig(**kw)
-        model = JDetector(num_priors=8, compute_dtype=jnp.float64)
+        model = JDetector(num_priors=8, num_classes=cfg.num_classes, compute_dtype=jnp.float64)
         state = jcreate(cfg, model, jax.random.PRNGKey(0), 8)
         init = numpy_tree({"params": state.params, "batch_stats": state.batch_stats})
         state = state.replace(batch_stats=jax.tree_util.tree_map(
@@ -146,6 +159,7 @@ def make_inputs(root):
     priors, batch = tiny_world()
     # the step cases: the JAX package's initial variables (float64 backbone)
     init, _, _ = run_jax(STEP_CASES["one_update"], 0)
+    coco_init, _, _ = run_jax(STEP_CASES["coco_dp"], 0)
     aug_batch = {"images": rng.integers(0, 256, (2, 86, 86, 3), dtype=np.uint8),
                  "boxes": batch["boxes"], "num_boxes": batch["num_boxes"]}
     gt = np.stack([random_boxes(rng, 3) for _ in range(4)])
@@ -171,7 +185,8 @@ def make_inputs(root):
                  "conf": rng.normal(0, 1, (4, 32)).astype(np.float32),
                  "gt": gt, "num": num, "priors": loss_priors},
         "step": {"cases": STEP_CASES, "init": init, "priors": priors, "batch": batch,
-                 "aug_batch": aug_batch},
+                 "aug_batch": aug_batch, "coco_init": coco_init,
+                 "coco_batch": case_world(STEP_CASES["coco_dp"])[1]},
         "train": {"kw": TRAIN_KW, "records": train_rec, "rank_records": ranks_rec,
                   "priors": priors,
                   "root": os.path.join(root, "train_2ranks")},
@@ -209,7 +224,8 @@ def ranks(tmp_path_factory):
             [sys.executable, "-m", "tests.torch_parallel_worker", inp_path, root],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
-        refs = {"jax_steps": {c: run_jax(STEP_CASES[c], 1) for c in ("one_update", "grad_accum2")},
+        refs = {"jax_steps": {c: run_jax(STEP_CASES[c], 1)
+                              for c in ("one_update", "grad_accum2", "coco_dp")},
                 "train_losses": one_process_train(inputs["train"], os.path.join(root, "one"))}
         logs = [p.communicate(timeout=300) for p in procs]
     finally:
@@ -343,14 +359,16 @@ def torch_state(s):
     return State
 
 
-@pytest.mark.parametrize("case", ["one_update", "grad_accum2"])
+@pytest.mark.parametrize("case", ["one_update", "grad_accum2", "coco_dp"])
 def test_train_step_over_two_ranks_matches_one_jax_step_over_the_global_batch(ranks, case):
     """One RMSProp update with clipping and EMA, the JAX package's step over
     the 2-image batch against each rank's step on its image (rank 1 starts
     from other parameters: replicate_state broadcasts rank 0's).
     ``grad_accum2``: microbatch 0 is rank 0's image and microbatch 1 rank
-    1's, so each rank runs one microbatch with zero rows. The replicas
-    come out bitwise equal."""
+    1's, so each rank runs one microbatch with zero rows. ``coco_dp``:
+    configs/coco_dp.yaml's loss (80 classes, Hungarian matching with dense
+    matching at 0.5; each rank matches its own image, the positives are
+    summed over both). The replicas come out bitwise equal."""
     _, outs, refs = ranks
     _, jmetrics, final = refs["jax_steps"][case]
     for o in outs:

@@ -112,7 +112,8 @@ def run_torch(kw, init, steps):
     return state, metrics
 
 
-def assert_trees_close(final, state, atol, with_nu=False):
+def assert_trees_close(final, state, atol, with_nu=False, leaf_atol=None):
+    """``leaf_atol`` maps a leaf's name to its own ``atol``, in every collection."""
     want = convert.flax_to_torch({"params": final["params"], "batch_stats": final["batch_stats"],
                                   "ema": final["ema"]}, device="cpu")
     got = {"params": state.params, "batch_stats": state.batch_stats, "ema": state.ema_params}
@@ -122,7 +123,7 @@ def assert_trees_close(final, state, atol, with_nu=False):
     for coll, tensors in want.items():
         assert set(got[coll]) == set(tensors), coll
         for k, v in tensors.items():
-            rtol, tol = 1e-5, atol
+            rtol, tol = 1e-5, (leaf_atol or {}).get(k, atol)
             if coll == "nu":  # sums of squared gradients, see the docstring
                 rtol, tol = 1e-3, 1e-3 * float(v.abs().max())
             np.testing.assert_allclose(got[coll][k].detach().double().numpy(),

@@ -124,8 +124,8 @@ def case_loss(inp):
 
 def tiny_state(kw, variables, perturb):
     cfg = Config(**kw)
-    model = detector.MultiBoxDetector(num_priors=8, input_size=75, compute_dtype=torch.float64,
-                                      device="cpu")
+    model = detector.MultiBoxDetector(num_priors=8, input_size=75, num_classes=cfg.num_classes,
+                                      compute_dtype=torch.float64, device="cpu")
     state = create_train_state(cfg, model, 0, 8, device="cpu",
                                variables=convert.flax_to_torch(variables, device="cpu"))
     if perturb:  # rank 1 starts elsewhere: replicate_state must undo it
@@ -141,8 +141,11 @@ def case_steps(inp):
     st = inp["step"]
     for name, kw in st["cases"].items():
         mesh.reset_collective_counts()
-        cfg, model, state = tiny_state(kw, st["init"], perturb=RANK == 1)
-        batch = st["aug_batch"] if kw.get("augment") else st["batch"]
+        coco = kw.get("num_classes", 1) > 1
+        cfg, model, state = tiny_state(kw, st["coco_init"] if coco else st["init"],
+                                       perturb=RANK == 1)
+        batch = st["aug_batch"] if kw.get("augment") else st["coco_batch"] if coco else \
+            st["batch"]
         n = batch["images"].shape[0] // 2
         local = {k: t(rows(v, n)) for k, v in batch.items()}
         if kw.get("augment"):
