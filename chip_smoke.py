@@ -124,8 +124,8 @@ read just after) and that what comes out is right, stage by stage:
   export (1, 8, 32 and 64 clients at the 2, 5 and 40 ms windows and with
   ``--max_batch 1``, then 64 clients against a queue of 16, which sheds
   with 429s); then configs/ssd_multiscale.yaml with flip_tta:
-  true at batch 32 (2 × 9,468 = 18,936 boxes an image into the NMS kernel's
-  global-keys route, exact at the path's own inputs, timed).
+  true at batch 32 (2 × 9,468 = 18,936 boxes an image into the NMS kernel,
+  window by window, exact at the path's own inputs, timed).
 
 Every phase prints one JSON line; any failure raises and the process exits
 non-zero. Needs one CUDA device; without one it exits with code 2 and
@@ -141,7 +141,9 @@ atol 1e-4 (a sum over K = 6144 in another order), bfloat16 output rtol
 wgmma_bf16, general) at its ragged edges, the head at 128 rows and
 coco_dp's head at 256 rows, and a second launch on the same inputs
 bit-equal (the split along K is summed in a fixed order); the wgmma
-kernels' SASS must hold HGMMA and TMA loads (cuobjdump); the
+kernels' SASS must hold HGMMA and TMA loads, and B1's window kernel bulk
+copies, mbarrier waits, the cluster barrier, generic atomics and MATCH
+(cuobjdump); the
 matmul's backward float32 rtol 1e-4 / atol 1e-4; Hungarian assignments
 on the card equal to the CPU's and to scipy's (after a check that they
 are optimal: total benefit within 1e-6 of scipy's);
@@ -158,7 +160,7 @@ unfolded one in float32 within 1e-3 of the largest output (in bfloat16,
 as shipped, the gap is reported); launch counts exact per path. Phase
 serve: the exported programs bitwise equal to the live function; the int8
 routes exactly the int64 reference; the NMS kernel exact at P = 18,936 and
-40,000 on its global-keys route (kernels phase and SSD with flip TTA).
+40,000, window by window (kernels phase and SSD with flip TTA).
 Phase parallel: the replicas bitwise equal after the 2-rank run; each
 rank's launches a step those of one process (1 match, 3 fused_matmul, 3
 fused_matmul_backward, 1 box_encode); the 2-rank losses against one
@@ -249,26 +251,44 @@ SEED = 0
 DEV = resolve_device(None)
 
 
+# SASS of what B1's window kernel uses of Hopper: UBLKCP (cp.async.bulk), SYNCS
+# (mbarrier arrive and wait), UCGABAR (the cluster barrier), ATOM.E.ADD (the
+# compaction's atomic on the first block's counter, through a generic
+# address that may be a peer block's shared memory), MATCH (__match_any_sync)
+B1_SASS = ("UBLKCP", "SYNCS", "UCGABAR", "ATOM.E.ADD", "MATCH")
+
+
 def sass_counts(lib_path):
-    """HGMMA (wgmma), UTMALDG and UTMASTG (TMA load and store) in each of
-    B2's wgmma kernels of the built library, from ``cuobjdump -sass``.
-    Fails if one of them lacks HGMMA or TMA loads."""
+    """From ``cuobjdump -sass`` of the built library: HGMMA (wgmma), UTMALDG
+    and UTMASTG (TMA load and store) in each of B2's wgmma kernels, and the
+    B1_SASS instructions in B1's window kernel (its staged-whole kernel
+    stages by plain loads). Fails if a wgmma kernel lacks HGMMA or TMA
+    loads, or B1's window kernel one of B1_SASS."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, b1, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             found = re.search(r"wgmma_kernelILi(\d+)E", line)
             name = f"wgmma_kernel<{found.group(1)}>" if found else None
             if name:
                 counts[name] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
-        elif name:
+            if "nms_window_kernel" in line:
+                name = "nms_window_kernel"
+                b1[name] = dict.fromkeys(B1_SASS, 0)
+        elif name in counts:
             for op in counts[name]:
                 counts[name][op] += op in line
+        elif name in b1:
+            for op in B1_SASS:
+                b1[name][op] += op in line
     if len(counts) != 4 or any(not c["HGMMA"] or not c["UTMALDG"] for c in counts.values()):
         raise AssertionError(f"B2's wgmma kernels lack HGMMA or TMA loads: {counts}")
-    return counts
+    window = b1.get("nms_window_kernel", {})
+    if not all(window.get(op) for op in B1_SASS):
+        raise AssertionError(f"B1's kernels lack bulk copies, mbarriers or clusters: {b1}")
+    return counts, b1
 
 
 def emit(obj) -> None:
@@ -396,30 +416,39 @@ def nms_cases(rng):
 
 
 def nms_entry(name, b, s, Kout, iou, thr, plain=False):
-    """Time B1 on one case; the work its data needs (``chunks_run`` from the
-    kernel's algorithm in numpy, checked against the kernel's output, and the
-    IoU tests greedy NMS needs for this output, from which the bound)."""
+    """Time B1 on one case; the work its data needs (the chunks, windows
+    and digit passes of the kernel's algorithm in numpy, checked against the
+    kernel's output, and the IoU tests greedy NMS needs for this output,
+    from which the bound), and the launch's plan (window, cluster)."""
     tb, ts = dev(b), dev(s)
     ms = time_ms(lambda: nms_kernel.nms_select(tb, ts, Kout, iou, thr))
     sel_idx, _ = nms_kernel.nms_select(tb, ts, Kout, iou, thr)
-    emu_idx, _, chunks = nms_kernel.sorted_scan_emulation(b, s, Kout, iou, thr)
+    emu_idx, _, work = nms_kernel.sorted_scan_emulation(b, s, Kout, iou, thr)
+    chunks = work.chunks
     if not np.array_equal(emu_idx, sel_idx.cpu().numpy()):
         raise AssertionError(f"nms[{name}]: the numpy emulation differs from the kernel")
     B, P = s.shape
-    nbytes = B * P * 20 + B * Kout * 8
-    # the bound counts the work the function needs: each live candidate up to the
-    # last one the selection reaches against the boxes kept before it, up to the
-    # first that suppresses it, ~25 f32 operations a test
+    # the bound counts what the function needs: every score read, the box of each
+    # live candidate up to the last one the selection reaches, the outputs written;
+    # each such candidate against the boxes kept before it, up to the first that
+    # suppresses it, ~25 f32 operations a test
+    reached = nms_kernel.greedy_candidates(s, sel_idx.cpu().numpy(), thr)
+    nbytes = B * P * 4 + reached * 16 + B * Kout * 8
     tests = nms_kernel.greedy_iou_tests(b, s, sel_idx.cpu().numpy(), iou, thr)
     bound_ms, bound_by = bound(nbytes, tests * 25, "float32")
     # the rounds model, for comparison: the spec's rounds (one per selected box, +1
-    # that finds nothing unless all K slots fill), each testing every box
+    # that finds nothing unless all K slots fill), each reading and testing every box
     rounds = int(torch.clamp((sel_idx >= 0).sum(1) + 1, max=Kout).sum())
     entry = {"shape": f"B={B} P={P} K={Kout}", "ms": ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "share_of_bound": bound_ms / ms, "iou_tests": tests,
-             "bound_ms_rounds_model": bound(nbytes, rounds * P * 25, "float32")[0],
+             "candidates_reached": reached,
+             "bound_ms_rounds_model": bound(B * P * 20 + B * Kout * 8, rounds * P * 25,
+                                            "float32")[0],
              "rounds_run": rounds, "chunks_run": int(chunks.sum()),
-             "chunks_slowest_image": int(chunks.max())}
+             "chunks_slowest_image": int(chunks.max()),
+             "windows_slowest_image": int(work.windows.max()),
+             "passes_slowest_image": int(work.passes.max()),
+             "plan": nms_kernel.nms_plan(B, P, Kout, nms_kernel.sm_count(DEV))._asdict()}
     if plain:
         entry["plain_ms"] = time_ms(
             lambda: nms_kernel.nms_batched_plain(tb, ts, Kout, iou, thr), reps=5, warmup=1)
@@ -443,9 +472,14 @@ def nms_exact(name, tb, ts, Kout, iou, thr) -> float:
 
 
 def check_nms(rng):
-    """Indices, counts and scores exact on every case. Returns the entry of
-    the contract line, timed at the main path's shape (B=32, P=256, K=100),
-    with the design shapes P = 1,024 (B=8) and P = 9,468 (B=4, K=200)."""
+    """Indices, counts and scores exact on every case, those staged whole
+    and those window by window (P = 18,936 and 40,000, a kept list of
+    9,468, all-equal scores, a refill that uses up window after window,
+    scores near 0.5 at 40,000, and scores read from L2 at every pass: B=64
+    P=50,000 and a kept list of 11,968 at P=40,000). Returns the entry of the contract line,
+    timed at the main path's shape (B=32, P=256, K=100), with the design
+    shapes P = 1,024 (B=8) and P = 9,468 (B=4, K=200) and the window-by-window
+    cases' rows (windows and digit passes of the slowest image, the plan)."""
     cases = nms_cases(rng)
     worst = 0.0
     for name, b, s, Kout, iou, thr in cases:
@@ -461,18 +495,44 @@ def check_nms(rng):
 
     by_name = {c[0]: c for c in cases}
     main = nms_entry(*by_name["main"], plain=True)
-    # the global-keys route: past 16,384 boxes, and a kept list that does not
-    # fit beside the keys
-    global_rows = {}
-    for name, B, P, Kout in (("global_p18936_b32", 32, 18936, 100),
-                             ("global_p40000_b4", 4, 40000, 200),
-                             ("global_p9468_k9468", 2, 9468, 9468)):
-        b, s = random_boxes(rng, (B, P)), rng.uniform(0, 1, (B, P)).astype(np.float32)
-        if nms_kernel.nms_route(P, Kout) != "global":
-            raise AssertionError(f"nms[{name}]: not on the global-keys route")
-        worst = max(worst, nms_exact(name, dev(b), dev(s), Kout, 0.5, 0.01))
-        if name != "global_p9468_k9468":
-            global_rows[name] = nms_entry(name, b, s, Kout, 0.5, 0.01, plain=True)
+    # window by window: past the window, a kept list of P boxes, equal scores
+    # (the index digits decide), scores near 0.5 (random weights' SSD), and a
+    # refill: K large, suppression heavy, so the scan uses up window after window
+    large_rows = {}
+    centre = random_boxes(rng, (2, 1), min_size=0.3, max_size=0.5)
+    large = [("p18936_b32", random_boxes(rng, (32, 18936)),
+              rng.uniform(0, 1, (32, 18936)), 100, 0.5, 0.01),
+             ("p40000_b4", random_boxes(rng, (4, 40000)), rng.uniform(0, 1, (4, 40000)),
+              200, 0.5, 0.01),
+             ("p9468_k9468", random_boxes(rng, (2, 9468)), rng.uniform(0, 1, (2, 9468)),
+              9468, 0.5, 0.01),
+             ("p9468_all_equal", random_boxes(rng, (4, 9468)), np.full((4, 9468), 0.5),
+              200, 0.5, 0.0),
+             ("p9468_refill", np.clip(centre + rng.normal(0, 0.05, (2, 9468, 4)), 0, 1),
+              rng.uniform(0, 1, (2, 9468)), 3000, 0.3, 0.0),
+             ("p40000_concentrated", random_boxes(rng, (4, 40000)),
+              0.5 + rng.normal(0, 1e-3, (4, 40000)), 200, 0.5, 0.0),
+             # scores read from global memory at every pass, past what a block
+             # stages: B=64 P=50,000 (one block an image), and a kept list at
+             # nms_fits' limit beside a cluster's slices (small boxes, so that
+             # K fills window after window)
+             ("p50000_b64_unstaged", random_boxes(rng, (64, 50000)),
+              rng.uniform(0, 1, (64, 50000)), 100, 0.5, 0.01),
+             ("p40000_k11968_unstaged", random_boxes(rng, (1, 40000), 0.002, 0.02),
+              rng.uniform(0, 1, (1, 40000)), 11968, 0.5, 0.0)]
+    for name, b, s, Kout, iou, thr in large:
+        b, s = b.astype(np.float32), s.astype(np.float32)
+        if not nms_kernel.nms_fits(s.shape[1], Kout):
+            raise AssertionError(f"nms[{name}]: refused")
+        plan = nms_kernel.nms_plan(*s.shape, Kout, nms_kernel.sm_count(DEV))
+        if plan.staged == name.endswith("_unstaged"):
+            raise AssertionError(f"nms[{name}]: planned {plan}")
+        worst = max(worst, nms_exact(name, dev(b), dev(s), Kout, iou, thr))
+        if name not in ("p9468_k9468", "p40000_k11968_unstaged"):
+            large_rows[name] = nms_entry(name, b, s, Kout, iou, thr,
+                                         plain=name in ("p18936_b32", "p40000_b4"))
+    if large_rows["p9468_refill"]["windows_slowest_image"] < 2:
+        raise AssertionError("nms[p9468_refill]: the window was not used up")
     return {
         "name": "nms", "route": "cuda",
         "source": "multibox_tpu_torch/csrc/nms.cu",
@@ -480,9 +540,8 @@ def check_nms(rng):
         "max_abs_err": worst, "library_ms": None,
         "tolerance": "indices, counts and scores exact", **main,
         "p1024": nms_entry(*by_name["p1024"], plain=True),
-        "p9468": nms_entry(*by_name["p9468"], plain=True), **global_rows,
-        "cases": [c[0] for c in cases] + ["global_p18936_b32", "global_p40000_b4",
-                                           "global_p9468_k9468"],
+        "p9468": nms_entry(*by_name["p9468"], plain=True), **large_rows,
+        "cases": [c[0] for c in cases] + [c[0] for c in large],
     }
 
 
@@ -3542,9 +3601,9 @@ def phase_serve(rng, gen, card_line):
     counted inside the programs' calls → int8's routes exact against
     int64 → the HTTP daemon (``serve.make_server``) under 8 and 32 clients
     at the 40 ms window → the serve bench (:func:`serve_bench`). Then
-    configs/ssd_multiscale.yaml with flip_tta: true at batch 32 (B1 on its
-    global-keys route at 2 × 9,468 = 18,936 boxes an image, exact at the
-    path's own inputs). Returns the launch counts and the kernel rows."""
+    configs/ssd_multiscale.yaml with flip_tta: true at batch 32 (B1 at 2 ×
+    9,468 = 18,936 boxes an image, window by window, exact at the path's own
+    inputs). Returns the launch counts and the kernel rows."""
     from multibox_tpu_torch.cli import export as cli_export
     from multibox_tpu_torch.cli import priors as cli_priors
     from multibox_tpu_torch.config import parse_config_file
@@ -3711,11 +3770,9 @@ def phase_serve(rng, gen, card_line):
     seconds = time.perf_counter() - t0
     add_counts(total, counts)
     check_results(results, tcfg.batch_size * len(sdata), tcfg.max_detections)
-    if seen[0][0].shape[1] != 2 * Pssd or nms_kernel.nms_route(2 * Pssd, tcfg.max_detections) \
-            != "global":
+    if seen[0][0].shape[1] != 2 * Pssd or not nms_kernel.nms_fits(2 * Pssd, tcfg.max_detections):
         raise AssertionError(f"flip TTA gave B1 {tuple(seen[0][0].shape)}")
     row = nms_at_path_inputs("ssd_flip_tta", seen)
-    row["route"] = "global keys"
     out.update({"ssd_flip_tta": {"P_to_nms": 2 * Pssd, "batches": len(sdata),
                                  "ms_per_batch": seconds * 1e3 / len(sdata),
                                  "launches": counts, "nms": row}})
@@ -3746,10 +3803,11 @@ def main() -> int:
     t0 = time.perf_counter()
     path, log = kernels.build_library(ptxas_verbose=True)
     kernels.load_library()
+    sass_b2, sass_b1 = sass_counts(path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path),
           "ptxas": [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln],
-          "sass_b2_wgmma": sass_counts(path)})
+          "sass_b2_wgmma": sass_b2, "sass_b1": sass_b1})
 
     rng = np.random.default_rng(SEED)
     entries = [check_nms(rng), check_fused_matmul(rng), *check_boxes(rng), check_match(rng)]

@@ -1,4 +1,4 @@
-// Batched hard NMS + top-k for sm_90a. One thread block per image.
+// Batched hard NMS + top-k for sm_90a.
 //
 // Replaces _nms_kernel / nms_pallas_batched of
 // multibox_tpu/ops/pallas/nms_kernel.py. The spec (ops/nms.py::_nms_jnp):
@@ -9,51 +9,63 @@
 // Slots left over keep index -1 and score -1.
 //
 // What bounds it: neither bytes (an image moves P*20 B in and K*8 B out)
-// nor operations, but the chain of dependent steps. The first version ran the
-// spec's K rounds literally: a block-wide arg-max with two barriers a round,
-// about 1 us a round on this card. Only winners suppress, and the winners
-// come out in (score desc, index asc) order, so greedy NMS is also: sort the
-// live boxes by that order, walk them, and keep each one that no box kept
-// before it suppresses, until K are kept. The design, one block of 512
-// threads an image:
-// - Stage: one round trip loads the scores and, when they fit in shared
-//   memory, the boxes (16-byte loads); each box gets a 64-bit key, the
-//   order-preserving bits of its score (-0.0 made +0.0 first: the spec
-//   treats the two as equal and breaks the tie by index), then its
-//   complemented index; 0 for a dead box. When the boxes do not fit (the SSD
-//   prior count), their lines are prefetched into L2 and the scan reads them
-//   from there.
-// - Sort: a bitonic sort of the keys, descending. The passes of stride
-//   <= 32 run in registers with shuffles, each warp on segments of 64 keys;
-//   a wider stride is a pass over shared memory between block barriers.
-// - Scan, kChunk candidates at a time, two block barriers a chunk (not two
-//   a selected box): (a) every candidate against every box kept so far (a
-//   list in shared memory), and (b) against the chunk's earlier candidates
-//   (row c: which of them would suppress it), both spread over the block's
-//   16 thread groups, verdicts gathered with ballots; (c) warp 0 resolves
-//   the chunk in order with ballots (keep = F(keep) to its fixed point,
-//   where F keeps a live candidate that no kept earlier one suppresses) and
-//   appends the kept ones to the outputs and the kept list. It stops at K
-//   kept or at the first dead candidate (the dead sort last).
+// nor operations, but the chain of dependent steps. Only winners suppress,
+// and they come out in (score desc, index asc) order, so greedy NMS is also:
+// walk the live boxes in that order and keep each one that no box kept
+// before it suppresses, until K are kept. Each box gets a 64-bit key, the
+// order-preserving bits of its score (-0.0 made +0.0 first: the spec treats
+// the two as equal and breaks the tie by index), then its complemented
+// index; 0 for a dead box. Keys of live boxes are unique, and a larger key
+// comes first. The walk reads only the first few hundred keys of the order
+// (the scan stops at K kept), so the kernel orders no more than it reads:
 //
-// Shared memory: 8 B a key (the sort pads P to a power of two), 16 B a kept
-// box, 20 B a staged box and score. P <= 16384 keys fit (128 KiB) with a kept
-// list of up to 5,312 boxes beside them (any K at P <= 8192). Boxes that do
-// not fit stay in global memory.
-//
-// Past that (more keys than 16384, or a kept list that does not fit beside
-// them: the SSD detect with flip TTA gives 18,936 boxes an image) the keys
-// live in a global scratch [B, npad] that the caller allocates, and the
-// block still owns its image: `nms_global_kernel`. It sorts the keys in
-// tiles of 16384 with the same shared-memory passes (each tile's direction
-// taken from its position in the whole sequence, so that the tiles form the
-// bitonic runs of the full sort), then runs the merges of larger strides as
-// coalesced compare-exchange passes over global memory between block
-// barriers, each followed by the strides inside a tile on the tile in shared
-// memory. The scan then reads the keys from global memory, with the kept
-// list in the shared memory the tiles used. Only a kept list larger than
-// shared memory is refused (about 13,500 boxes). Same keys, same scan, so the
-// same result as the shared route, bitwise.
+// - A small image (the wrapper's choice: at most 1,024 boxes) is staged
+//   whole in shared memory (`nms_full_kernel`): scores and boxes in
+//   one round trip, by 16-byte and 4-byte loads (bulk copies were no faster
+//   at 256 and 1,024 boxes); then a bitonic sort of all its keys (strides <= 32 in registers with shuffles, wider ones
+//   as passes over shared memory between block barriers), then the scan.
+// - A larger one goes window by window (`nms_window_kernel`). A window is
+//   an exact prefix of what is left of the order: the keys in [floor,
+//   ceiling). A radix selection finds the floor: histogram passes over the
+//   keys' 8-bit digits, highest first, counting the keys below the ceiling
+//   that share the digits fixed so far; counting the bins from the top, the
+//   first whose running count passes the room left is b1; when the bins
+//   above b1 hold at least half the window (less what is taken), the floor
+//   is the start of bin b1 + 1, else b1's digit is fixed and the next pass
+//   splits it by the next digit. A pass whose keys all share its digit goes
+//   straight to the digit of their highest differing bit (from the OR and
+//   AND of the keys), so equal scores cost one pass before the index
+//   digits. The window's keys are compacted into shared memory, sorted
+//   (the same bitonic passes on at most `window` keys), their boxes
+//   gathered beside them, and scanned. Fewer than K kept with live keys
+//   left below the floor: the next window, four times as large (within
+//   the room allocated), is selected below it (the refill), and the scan
+//   goes on with the same kept list. Exact for any data; the window only
+//   changes the speed. With `staged` (the wrapper's plan: where they fit
+//   beside the window and the kept list), each block's slice of the scores
+//   is staged in shared memory by bulk copies (cp.async.bulk) in tiles of
+//   16 KiB, each tile on its own mbarrier, the first histogram pass
+//   consuming tile t while later tiles are in flight; else every pass reads
+//   the scores from global memory (L2).
+//   A pass is bound by latency (16 warps an SM): each thread holds kUnroll
+//   keys at once, the lanes of a warp that share a bin add once
+//   (__match_any_sync), and the compaction reserves a warp's room with one
+//   atomic for its kUnroll * 32 keys.
+// - With `cluster` > 1, an image's blocks form a thread-block cluster on
+//   neighbouring SMs: each stages and counts its slice of the keys, the
+//   counts meet in the first block's shared memory over distributed shared
+//   memory (cluster.map_shared_rank), the first block decides each pass,
+//   every block writes its window keys straight into the first block's
+//   shared memory, and the first block sorts and scans.
+// - The scan, kChunk candidates at a time, two block barriers a chunk:
+//   (a) every candidate against every box kept so far (a list in shared
+//   memory), and (b) against the chunk's earlier candidates (row c: which
+//   of them would suppress it), both spread over the block's 16 thread
+//   groups, verdicts gathered with ballots; (c) warp 0 resolves the chunk
+//   in order with ballots (keep = F(keep) to its fixed point, where F keeps
+//   a live candidate that no kept earlier one suppresses) and appends the
+//   kept ones to the outputs and the kept list. It stops at K kept or at
+//   the window's end.
 //
 // Arithmetic is held to the plain PyTorch version op for op, each a
 // correctly rounded f32 operation (no FMA contraction), so a box that sits
@@ -66,9 +78,21 @@
 // The last line's rounded division is decided exactly without dividing (see
 // `Threshold`). This file is compiled with -fmad=false as well.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+// Phase stamps for scripts/torch_kernel_design.py, which defines these to
+// read %globaltimer; nothing in this build.
+#ifndef NMS_STAMP
+#define NMS_STAMP_BEGIN
+#define NMS_STAMP(slot)
+#define NMS_COUNT(slot)
+#define NMS_STAMP_END(cond, img)
+#endif
 
 namespace {
 
@@ -78,13 +102,21 @@ constexpr int kChunk = 32;  // candidates a chunk: 32 or 64
 constexpr int kGroups = kThreads / kChunk;
 constexpr int kBatch = 4;  // kept boxes a thread tests at a time
 constexpr int kRowTests = (kChunk + kGroups - 1) / kGroups;  // earlier candidates a thread tests
-constexpr int kMaxKeys = 16384;
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kUnroll = 4;  // keys a thread holds at once in a pass over the keys
+constexpr int kWindowMax = 4096;  // the largest window (keys) a launch may ask for
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kTileBytes = 16384;  // one bulk copy of staged scores
+constexpr int kMaxTiles = 16;
 constexpr float kEps = 1e-8f;
 // Dynamic shared memory a block may use on sm_90 (227 KiB), less the static
-// arrays of the kernel (about 4 KiB at 512 threads) and a margin.
+// arrays of the kernel (about 6 KiB at 512 threads) and a margin.
 constexpr size_t kSmemLimit = 227 * 1024 - 16 * 1024;
 
 static_assert(kChunk == 32 || kChunk == 64, "a chunk is one or two warps wide");
+static_assert(kBins == 8 * 32, "warp 0 reads the histogram 8 bins a lane");
+
 
 typedef unsigned long long u64;
 
@@ -130,39 +162,94 @@ __device__ __forceinline__ u64 live_key(float s, int i) {
   return (static_cast<u64>(ord) << 32) | static_cast<unsigned>(~i);
 }
 
+__device__ __forceinline__ u64 score_key(float s, int i, float score_thr) {
+  return (s >= score_thr && s != -CUDART_INF_F) ? live_key(s, i) : 0ull;
+}
+
 __device__ __forceinline__ int key_index(u64 key) {
   return key ? static_cast<int>(~static_cast<unsigned>(key)) : -1;
 }
 
-// The boxes' lines prefetched into L2 for a scan that reads them from global
-// memory, in a loop of their own so that the score loads are not held behind
-// them.
-__device__ __forceinline__ void prefetch_boxes(const float4* gbox, int P) {
-  for (int i = 8 * threadIdx.x; i < P; i += 8 * kThreads)  // 8 boxes a 128-byte line
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(gbox + i));
+// ---------------------------------------------------------------- bulk copies
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Stage: the keys of boxes first .. first + n - 1 into skey[0, n), 0 for a
-// dead box and for the padding; with `sbox` (first = 0), also the boxes
-// (16-byte loads) and the scores into shared memory, in the same round trip.
-__device__ __forceinline__ void stage_keys(u64* skey, float4* sbox, float* sscore,
-                                           const float4* gbox, const float* gscore, int P,
-                                           int first, int n, float score_thr) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int gi = first + i;
-    u64 key = 0;
-    if (gi < P) {
-      const float s = gscore[gi];
-      if (sbox) {
-        sbox[i] = gbox[gi];
-        sscore[i] = s;
-      }
-      if (s >= score_thr && s != -CUDART_INF_F) key = live_key(s, gi);
-    }
-    skey[i] = key;
-  }
+__device__ __forceinline__ void mbar_init(u64* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
 }
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0: arrive on `bar` expecting `bytes`, and copy them global -> shared
+// (both 16-byte aligned, bytes a multiple of 16), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, u64* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(u64* bar) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Scores src[0, n) staged into shared memory: the part between the first and
+// the last 16-byte boundary by bulk copies of kTileBytes, each on its own
+// mbarrier (thread 0 issues them), the ragged ends by plain loads. `base`
+// has room for n + 4 floats; the returned pointer p (p[i] holds src[i]) is
+// base shifted so that p and src agree modulo 16 bytes. Every thread calls
+// it; the caller puts a block barrier after the call and, before reading a
+// float of the bulk part, waits on its tile's barrier (`Staged`).
+struct Staged {
+  float* s;   // s[i] = src[i]
+  int head;   // floats before the bulk part
+  int tiles;  // bulk copies, on bars[0, tiles)
+};
+
+__device__ __forceinline__ Staged stage_scores(float* base, const float* src, int n, u64* bars) {
+  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  Staged st;
+  st.s = base + shift;
+  st.head = min((4 - shift) & 3, n);
+  const int body = (n - st.head) & ~3;  // floats in the bulk part
+  st.tiles = (body * 4 + kTileBytes - 1) / kTileBytes;
+  if (threadIdx.x < st.head) st.s[threadIdx.x] = src[threadIdx.x];
+  for (int i = st.head + body + threadIdx.x; i < n; i += kThreads) st.s[i] = src[i];
+  if (threadIdx.x == 0) {
+    for (int t = 0; t < st.tiles; ++t) mbar_init(&bars[t]);
+    mbar_init_fence();
+    for (int t = 0; t < st.tiles; ++t) {
+      const int off = st.head + t * (kTileBytes / 4);
+      const int bytes = min(kTileBytes, (st.head + body - off) * 4);
+      bulk_load(st.s + off, src + off, static_cast<unsigned>(bytes), &bars[t]);
+    }
+  }
+  return st;
+}
+
+// Waits (every thread) for the tiles holding floats up to `last`, the tiles
+// before `*waited` having been waited for already.
+__device__ __forceinline__ void wait_tiles(const Staged& st, u64* bars, int last, int* waited) {
+  const int t = last < st.head ? -1 : min((last - st.head) / (kTileBytes / 4), st.tiles - 1);
+  while (*waited <= t) mbar_wait(&bars[(*waited)++]);
+}
+
+// ------------------------------------------------------------------- the sort
 
 // One compare-exchange of a bitonic pass of stride j < 32, in registers: this
 // lane holds the key at position e, its partner (position e ^ j) is in lane
@@ -177,15 +264,13 @@ __device__ __forceinline__ u64 exchange(u64 a, int e, int j, int k) {
 // The passes of strides <= 32 for k = k_lo ... k_hi (the first from stride
 // j_first), which stay inside aligned segments of 64 keys: each warp loads a
 // segment into two registers a lane (positions lane and lane + 32), runs the
-// passes with shuffles and stores it back. skey[0, n) holds the keys at
-// positions first .. first + n - 1 of the whole sequence (first a multiple
-// of n), from which the direction of each run is taken.
-__device__ __forceinline__ void segment_passes(u64* skey, int n, int first, int k_lo,
-                                               int k_hi, int j_first) {
+// passes with shuffles and stores it back.
+__device__ __forceinline__ void segment_passes(u64* skey, int n, int k_lo, int k_hi,
+                                               int j_first) {
   const int lane = threadIdx.x & 31;
   for (int base = 64 * (threadIdx.x >> 5); base < n; base += 2 * kThreads) {
     u64 a0 = skey[base + lane], a1 = skey[base + lane + 32];
-    const int e0 = first + base + lane, e1 = e0 + 32;
+    const int e0 = base + lane, e1 = e0 + 32;
     for (int k = k_lo; k <= k_hi; k <<= 1) {
       for (int j = (k == k_lo) ? j_first : (k >> 1); j > 0; j >>= 1) {
         if (j == 32) {  // partners in one lane
@@ -204,48 +289,34 @@ __device__ __forceinline__ void segment_passes(u64* skey, int n, int first, int 
   }
 }
 
-// A pass of stride j (64 <= j < n) over skey[0, n), the keys at positions
-// first .. first + n - 1, for the runs of length k; the caller puts a block
-// barrier before and after.
-__device__ __forceinline__ void shared_pass(u64* skey, int n, int first, int k, int j) {
+// A pass of stride j (64 <= j < n) over skey[0, n) for the runs of length k;
+// the caller puts a block barrier before and after.
+__device__ __forceinline__ void shared_pass(u64* skey, int n, int k, int j) {
   for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
     const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
     const int hi = lo + j;
     const u64 a = skey[lo], b = skey[hi];
-    if ((((first + lo) & k) == 0) ? (a < b) : (a > b)) {
+    if (((lo & k) == 0) ? (a < b) : (a > b)) {
       skey[lo] = b;
       skey[hi] = a;
     }
   }
 }
 
-// Bitonic sort of skey[0, n) (a power of two >= 64), the keys at positions
-// first .. first + n - 1 of the whole sequence: descending when that tile is
-// the whole sequence (first = 0), else in the direction the tile's run of
-// length n has in the full sort. Every thread of the block calls it, after a
-// barrier that follows the keys' writes, and a barrier follows it. Strides
-// <= 32 run in registers (segment_passes); a wider stride is a pass over
-// shared memory between two block barriers.
-__device__ __forceinline__ void sort_keys_desc(u64* skey, int n, int first) {
-  segment_passes(skey, n, first, 2, 64, 1);
+// Bitonic sort of skey[0, n) (a power of two >= 64), descending. Every thread
+// of the block calls it, after a barrier that follows the keys' writes, and a
+// barrier follows it. Strides <= 32 run in registers (segment_passes); a
+// wider stride is a pass over shared memory between two block barriers.
+__device__ __forceinline__ void sort_keys_desc(u64* skey, int n) {
+  segment_passes(skey, n, 2, 64, 1);
   for (int k = 128; k <= n; k <<= 1) {
     __syncthreads();
     for (int j = k >> 1; j >= 64; j >>= 1) {
-      shared_pass(skey, n, first, k, j);
+      shared_pass(skey, n, k, j);
       __syncthreads();
     }
-    segment_passes(skey, n, first, k, k, 32);
+    segment_passes(skey, n, k, k, 32);
   }
-}
-
-// The strides n/2 .. 1 of the runs of length k > n on the tile skey[0, n)
-// (positions first .. first + n - 1); barriers as for sort_keys_desc.
-__device__ __forceinline__ void merge_tile(u64* skey, int n, int first, int k) {
-  for (int j = n >> 1; j >= 64; j >>= 1) {
-    shared_pass(skey, n, first, k, j);
-    __syncthreads();
-  }
-  segment_passes(skey, n, first, k, k, 32);
 }
 
 __host__ __device__ inline int pad_keys(int P) {
@@ -254,25 +325,20 @@ __host__ __device__ inline int pad_keys(int P) {
   return n;
 }
 
-// Shared memory of a block: the keys, the kept list, then (when they fit
-// too) the image's boxes and scores, staged so that the scan reads them from
-// shared memory.
-__host__ __device__ inline size_t smem_bytes(int P, int K, bool staged) {
-  const int cap = K < P ? K : P;
-  return static_cast<size_t>(pad_keys(P)) * sizeof(u64) +
-         static_cast<size_t>(cap) * sizeof(float4) +
-         (staged ? static_cast<size_t>(P) * (sizeof(float4) + sizeof(float)) : 0);
-}
+// ------------------------------------------------------------------- the scan
 
-// The scan over the sorted keys skey[0, npad) (in shared or global memory),
-// kChunk candidates at a time, and the outputs' tail; every thread of the
-// block calls it after a barrier that follows the sort. `kept` holds room for
-// min(K, P) boxes in shared memory; the candidates' boxes and scores are read
-// from cand_box / cand_score.
-__device__ __forceinline__ void scan_chunks(const u64* skey, int npad, float4* kept,
-                                            const float4* cand_box, const float* cand_score,
-                                            int* out_idx, float* out_score, int K,
-                                            const Threshold& thr) {
+// The scan over the sorted keys skey[0, npad), kChunk candidates at a time,
+// appending to the kept list kept[0, nk) (room for min(K, P) boxes) and to
+// the outputs; returns the new nk. Every thread of the block calls it after a
+// barrier that follows the sort (and the gather). A candidate's box is
+// cand_box[its position] with kByPos (the window's gathered boxes), else
+// cand_box[its index] (the image staged whole); its score cand_score[its
+// index].
+template <bool kByPos>
+__device__ __forceinline__ int scan_chunks(const u64* skey, int npad, float4* kept, int nk,
+                                           const float4* cand_box, const float* cand_score,
+                                           int* out_idx, float* out_score, int K,
+                                           const Threshold& thr) {
   __shared__ u64 rowpart[kGroups][kChunk];
   __shared__ unsigned deadw[kWarps];
   __shared__ int s_nk;
@@ -282,10 +348,9 @@ __device__ __forceinline__ void scan_chunks(const u64* skey, int npad, float4* k
   constexpr int R = kChunk / 32;  // candidates a lane of warp 0 resolves
   const int c = tid % kChunk;      // this thread's candidate
   const int g = tid / kChunk;      // and its group
-  int nk = 0;
-  for (int c0 = 0; c0 < npad && skey[c0] != 0; c0 += kChunk) {
+  for (int c0 = 0; nk < K && c0 < npad && skey[c0] != 0; c0 += kChunk) {
     const int idx = key_index(skey[c0 + c]);  // c0 + kChunk <= npad
-    const float4 mine = cand_box[idx < 0 ? 0 : idx];
+    const float4 mine = cand_box[kByPos ? c0 + c : (idx < 0 ? 0 : idx)];
     const float mine_area = box_area(mine);
     // (b) against the chunk's earlier candidates (row c: which would
     // suppress c), and (a) against the kept list, kBatch boxes a thread at a
@@ -297,8 +362,9 @@ __device__ __forceinline__ void scan_chunks(const u64* skey, int npad, float4* k
 #pragma unroll
     for (int m = 0; m < kRowTests; ++m) {
       const int j = g + m * kGroups;
-      jdx[m] = key_index(skey[c0 + (j < kChunk ? j : 0)]);
-      jb[m] = cand_box[jdx[m] < 0 ? 0 : jdx[m]];
+      const int jj = j < kChunk ? j : 0;
+      jdx[m] = key_index(skey[c0 + jj]);
+      jb[m] = cand_box[kByPos ? c0 + jj : (jdx[m] < 0 ? 0 : jdx[m])];
     }
     bool dead = idx < 0;
     for (int base = g; base < nk; base += kBatch * kGroups) {
@@ -366,170 +432,414 @@ __device__ __forceinline__ void scan_chunks(const u64* skey, int npad, float4* k
           const int kidx = key_index(skey[c0 + cc]);
           out_idx[pos] = kidx;
           out_score[pos] = cand_score[kidx];
-          kept[pos] = cand_box[kidx];
+          kept[pos] = cand_box[kByPos ? c0 + cc : kidx];
         }
       }
       if (lane == 0) s_nk = nk + __popcll(keep);
     }
     __syncthreads();
     nk = s_nk;
-    if (nk >= K) break;
   }
+  return nk;
+}
 
-  for (int k = nk + tid; k < K; k += kThreads) {
+__device__ __forceinline__ void fill_tail(int* out_idx, float* out_score, int nk, int K) {
+  for (int k = nk + threadIdx.x; k < K; k += kThreads) {
     out_idx[k] = -1;
     out_score[k] = -1.0f;
   }
 }
 
-// kStaged: the boxes and scores are in shared memory beside the keys and the
-// kept list, so that every access of the scan is a shared-memory one.
-template <bool kStaged>
+// ------------------------------------------------------- an image staged whole
+
+// Shared memory of nms_full_kernel: the keys (P padded), the kept list, the
+// boxes, the scores.
+__host__ __device__ inline size_t full_smem_bytes(int P, int K) {
+  const int cap = K < P ? K : P;
+  return static_cast<size_t>(pad_keys(P)) * sizeof(u64) + static_cast<size_t>(cap + P) * 16 +
+         static_cast<size_t>(P) * sizeof(float);
+}
+
+// One block an image staged whole (at most 4,096 boxes fit; the wrapper
+// takes this for at most 1,024): stage the boxes and scores by 16-byte and
+// 4-byte loads in the same round trip as the keys, sort every key, scan.
 __global__ void __launch_bounds__(kThreads)
-nms_kernel(const float4* __restrict__ boxes,  // [B, P]
-           const float* __restrict__ scores,  // [B, P]
-           int* __restrict__ sel_idx,         // [B, K]
-           float* __restrict__ sel_scores,    // [B, K]
-           int P, int K, Threshold thr, float score_thr) {
+nms_full_kernel(const float4* __restrict__ boxes,  // [B, P]
+                const float* __restrict__ scores,  // [B, P]
+                int* __restrict__ sel_idx,         // [B, K]
+                float* __restrict__ sel_scores,    // [B, K]
+                int P, int K, Threshold thr, float score_thr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int img = blockIdx.x;
   const int npad = pad_keys(P);
   const int cap = K < P ? K : P;
-
   const float4* gbox = boxes + static_cast<size_t>(img) * P;
   const float* gscore = scores + static_cast<size_t>(img) * P;
+  NMS_STAMP_BEGIN;
   u64* skey = reinterpret_cast<u64*>(smem);
   float4* kept = reinterpret_cast<float4*>(skey + npad);
   float4* sbox = kept + cap;
   float* sscore = reinterpret_cast<float*>(sbox + P);
 
-  if (!kStaged) prefetch_boxes(gbox, P);
-  stage_keys(skey, kStaged ? sbox : nullptr, sscore, gbox, gscore, P, 0, npad, score_thr);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < npad; i += kThreads) {
+    u64 key = 0;
+    if (i < P) {
+      const float s = gscore[i];
+      sbox[i] = gbox[i];
+      sscore[i] = s;
+      key = score_key(s, i, score_thr);
+    }
+    skey[i] = key;
+  }
   __syncthreads();
-  sort_keys_desc(skey, npad, 0);
+  NMS_STAMP(0);
+  sort_keys_desc(skey, npad);
   __syncthreads();
-  scan_chunks(skey, npad, kept, kStaged ? sbox : gbox, kStaged ? sscore : gscore,
-              sel_idx + static_cast<size_t>(img) * K, sel_scores + static_cast<size_t>(img) * K,
-              K, thr);
+  NMS_STAMP(3);
+  int* out_idx = sel_idx + static_cast<size_t>(img) * K;
+  float* out_score = sel_scores + static_cast<size_t>(img) * K;
+  const int nk = scan_chunks<false>(skey, npad, kept, 0, sbox, sscore, out_idx, out_score, K, thr);
+  NMS_STAMP(4);
+  fill_tail(out_idx, out_score, nk, K);
+  NMS_STAMP_END(true, img);
 }
 
-// The global-keys route: the keys of image b in keys[b * npad, (b + 1) *
-// npad), sorted in tiles of min(npad, kMaxKeys) in shared memory and merged
-// over global memory (see the head of the file); the kept list in the shared
-// memory the tiles used; boxes and scores read from global memory (L2).
+// ------------------------------------------------------ window by window
+
+// The selection's state, in the first block of the image's cluster.
+struct Select {
+  u64 prefix, mask, floor;
+  int cap, shift, room, need, count;
+  int state;  // kGoOn: another pass; kFound: the window is [floor, ceiling); kFinal: and
+              // it holds every live key left
+};
+constexpr int kGoOn = 0, kFound = 1, kFinal = 2;
+
+__device__ __forceinline__ void cluster_sync(int csize) {
+  if (csize > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// p in the first block of the cluster (p itself without a cluster).
+template <typename T>
+__device__ __forceinline__ T* in_first(T* p, int csize) {
+  return csize > 1 ? cg::this_cluster().map_shared_rank(p, 0) : p;
+}
+
+__device__ __forceinline__ int cluster_rank(int csize) {
+  return csize > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+}
+
+// Shared memory of nms_window_kernel: the window's keys and boxes, the kept
+// list, then (when `slice` is not 0) the block's slice of scores.
+__host__ __device__ inline size_t window_smem_bytes(int window, int K, int P, int slice) {
+  const int cap = K < P ? K : P;
+  return static_cast<size_t>(window) * (sizeof(u64) + 16) + static_cast<size_t>(cap) * 16 +
+         (slice ? static_cast<size_t>(slice + 4) * sizeof(float) : 0);
+}
+
+// One cluster of `csize` blocks an image (one block when csize is 1), block
+// r owning the boxes [r * slice, (r + 1) * slice); `staged`: each block's
+// scores in its shared memory, else read from global memory at every pass. The first window holds up to `window` keys,
+// each refill's four times the last, up to `window_max` (the room
+// allocated).
 __global__ void __launch_bounds__(kThreads)
-nms_global_kernel(const float4* __restrict__ boxes,  // [B, P]
+nms_window_kernel(const float4* __restrict__ boxes,  // [B, P]
                   const float* __restrict__ scores,  // [B, P]
                   int* __restrict__ sel_idx,         // [B, K]
                   float* __restrict__ sel_scores,    // [B, K]
-                  u64* keys,                         // [B, npad] scratch
-                  int P, int K, Threshold thr, float score_thr) {
+                  int P, int K, Threshold thr, float score_thr, int window,
+                  int window_max, int csize, int slice, int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int img = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int npad = pad_keys(P);
-  const int tile = npad < kMaxKeys ? npad : kMaxKeys;
+  __shared__ __align__(8) u64 bars[kMaxTiles];
+  __shared__ unsigned hist[kBins];
+  __shared__ u64 s_or, s_and;
+  __shared__ Select s_sel, s_cur;
+  __shared__ int s_count, s_more;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int img = blockIdx.x / csize;
+  const int rank = cluster_rank(csize);
+  const bool first = rank == 0;
+  const int lo = min(P, rank * slice), hi = min(P, lo + slice);
+  const int cap = K < P ? K : P;
   const float4* gbox = boxes + static_cast<size_t>(img) * P;
   const float* gscore = scores + static_cast<size_t>(img) * P;
-  u64* gkey = keys + static_cast<size_t>(img) * npad;
-  u64* stile = reinterpret_cast<u64*>(smem);
+  u64* wkey = reinterpret_cast<u64*>(smem);
+  float4* wbox = reinterpret_cast<float4*>(wkey + window_max);
+  float4* kept = wbox + window_max;
+  Select* sel = in_first(&s_sel, csize);
+  int* count0 = in_first(&s_count, csize);
+  u64* wkey0 = in_first(wkey, csize);
+  const int* more0 = in_first(&s_more, csize);
+  NMS_STAMP_BEGIN;
 
-  prefetch_boxes(gbox, P);
-  // runs of length <= tile: each tile sorted in shared memory
-  for (int t0 = 0; t0 < npad; t0 += tile) {
-    stage_keys(stile, nullptr, nullptr, gbox, gscore, P, t0, tile, score_thr);
-    __syncthreads();
-    sort_keys_desc(stile, tile, t0);
-    __syncthreads();
-    for (int i = tid; i < tile; i += kThreads) gkey[t0 + i] = stile[i];
-    __syncthreads();
-  }
-  // runs of length k > tile: strides >= tile over global memory, the rest
-  // tile by tile in shared memory
-  for (int k = 2 * tile; k <= npad; k <<= 1) {
-    for (int j = k >> 1; j >= tile; j >>= 1) {
-      for (int i = tid; i < (npad >> 1); i += kThreads) {
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const int hi = lo + j;
-        const u64 a = gkey[lo], b = gkey[hi];
-        if (((lo & k) == 0) ? (a < b) : (a > b)) {
-          gkey[lo] = b;
-          gkey[hi] = a;
-        }
+  Staged st{nullptr, 0, 0};
+  if (staged) st = stage_scores(reinterpret_cast<float*>(kept + cap), gscore + lo, hi - lo, bars);
+  int waited = staged ? 0 : st.tiles;
+  __syncthreads();
+  NMS_STAMP(0);
+  // the key of box i of this block's slice
+  auto key_at = [&](int i) -> u64 {
+    return score_key(staged ? st.s[i - lo] : __ldg(gscore + i), i, score_thr);
+  };
+
+  int nk = 0;
+  u64 ceiling = ~0ull;  // above every live key (+inf's at index 0 is 0xff800000ffffffff)
+  for (int wcap = window;; wcap = min(4 * wcap, window_max)) {
+    // ---- select the window below the ceiling
+    if (first && tid == 0)
+      s_sel = Select{0ull, 0ull, 0ull, wcap, 64 - kDigitBits, wcap, wcap / 2, 0, kGoOn};
+    cluster_sync(csize);
+    NMS_COUNT(6);
+    for (int pass = 0;; ++pass) {
+      for (int b = tid; b < kBins; b += kThreads) hist[b] = 0;
+      if (tid == 0) {
+        s_cur = *sel;  // one read of the first block's state a block
+        s_or = 0ull;
+        s_and = ~0ull;
       }
       __syncthreads();
+      const Select cur = s_cur;
+      if (cur.state != kGoOn) break;
+      NMS_COUNT(7);
+      u64 any = 0ull, all = ~0ull;
+      for (int base = lo; base < hi; base += kUnroll * kThreads) {
+        if (waited < st.tiles)
+          wait_tiles(st, bars, min(base + kUnroll * kThreads, hi) - 1 - lo, &waited);
+        u64 key[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = base + u * kThreads + tid;
+          key[u] = i < hi ? key_at(i) : 0ull;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const bool in =
+              key[u] != 0ull && key[u] < ceiling && (key[u] & cur.mask) == cur.prefix;
+          const unsigned bin =
+              in ? static_cast<unsigned>(key[u] >> cur.shift) & (kBins - 1) : kBins;
+          const unsigned peers = __match_any_sync(0xffffffffu, bin);
+          if (in && lane == __ffs(peers) - 1)
+            atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+          if (in) {
+            any |= key[u];
+            all &= key[u];
+          }
+        }
+      }
+      const unsigned any_hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(any >> 32));
+      const unsigned any_lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(any));
+      const unsigned all_hi = __reduce_and_sync(0xffffffffu, static_cast<unsigned>(all >> 32));
+      const unsigned all_lo = __reduce_and_sync(0xffffffffu, static_cast<unsigned>(all));
+      if (lane == 0) {
+        atomicOr(&s_or, (static_cast<u64>(any_hi) << 32) | any_lo);
+        atomicAnd(&s_and, (static_cast<u64>(all_hi) << 32) | all_lo);
+      }
+      __syncthreads();
+      cluster_sync(csize);
+      if (first && warp == 0) {
+        // lane l: bins 8l .. 8l + 7, summed over the cluster's blocks
+        unsigned h[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) h[k] = 0;
+        u64 or_all = 0ull, and_all = ~0ull;
+        for (int r = 0; r < csize; ++r) {
+          const unsigned* hr = csize > 1 ? cg::this_cluster().map_shared_rank(hist, r) : hist;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) h[k] += hr[8 * lane + k];
+          or_all |= csize > 1 ? *cg::this_cluster().map_shared_rank(&s_or, r) : s_or;
+          and_all &= csize > 1 ? *cg::this_cluster().map_shared_rank(&s_and, r) : s_and;
+        }
+        unsigned mine = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) mine += h[k];
+        unsigned suffix = mine;  // the keys in lanes l .. 31
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned y = __shfl_down_sync(0xffffffffu, suffix, o);
+          if (lane + o < 32) suffix += y;
+        }
+        const unsigned total = __shfl_sync(0xffffffffu, suffix, 0);
+        // cum[8l + k] = the keys in bins 8l + k .. 255
+        unsigned cum[8];
+        unsigned run = suffix;
+        int over = 0;  // this lane's bins whose running count passes the room
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          cum[k] = run;
+          run -= h[k];
+          over += cum[k] > static_cast<unsigned>(cur.room);
+        }
+        // cum is non-increasing: bins 0 .. b1 pass the room
+        const int b1 = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(over))) - 1;
+        const int nb = b1 + 1;  // the bin past b1 (256: none)
+        unsigned cum_nb = 0, cum_b1 = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (8 * lane + k == nb) cum_nb = cum[k];
+          if (8 * lane + k == b1) cum_b1 = cum[k];
+        }
+        const unsigned above = nb < kBins ? __shfl_sync(0xffffffffu, cum_nb, nb >> 3) : 0u;
+        const unsigned at_b1 = b1 >= 0 ? __shfl_sync(0xffffffffu, cum_b1, b1 >> 3) - above : 0u;
+        if (lane == 0) {
+          Select next = cur;
+          if (pass == 0 && total <= static_cast<unsigned>(cur.room)) {
+            next.floor = 1ull;
+            next.count = static_cast<int>(total);
+            next.state = kFinal;
+          } else if (above >= static_cast<unsigned>(cur.need)) {
+            next.floor = cur.prefix | (static_cast<u64>(nb) << cur.shift);
+            next.count = cur.cap - cur.room + static_cast<int>(above);
+            next.state = kFound;
+          } else {
+            next.room -= static_cast<int>(above);
+            next.need -= static_cast<int>(above);
+            if (at_b1 == total) {  // a digit they all share: on to their first difference
+              const int top = 63 - __clzll(or_all ^ and_all);
+              next.shift = top / kDigitBits * kDigitBits;
+              next.mask = ~((1ull << (next.shift + kDigitBits)) - 1ull);
+              next.prefix = or_all & next.mask;
+            } else {
+              next.prefix = cur.prefix | (static_cast<u64>(b1) << cur.shift);
+              next.mask = cur.mask | (static_cast<u64>(kBins - 1) << cur.shift);
+              next.shift = cur.shift - kDigitBits;
+            }
+          }
+          if (next.state != kGoOn) s_count = 0;
+          s_sel = next;
+        }
+      }
+      cluster_sync(csize);
     }
-    for (int t0 = 0; t0 < npad; t0 += tile) {
-      for (int i = tid; i < tile; i += kThreads) stile[i] = gkey[t0 + i];
-      __syncthreads();
-      merge_tile(stile, tile, t0, k);
-      __syncthreads();
-      for (int i = tid; i < tile; i += kThreads) gkey[t0 + i] = stile[i];
-      __syncthreads();
+    const Select win = s_cur;
+    NMS_STAMP(1);
+
+    // ---- compact the window's keys into the first block, pad, sort: a warp
+    // reserves the room for its kUnroll * 32 keys' window keys with one atomic
+    for (int base = lo; base < hi; base += kUnroll * kThreads) {
+      u64 key[kUnroll];
+      unsigned ballot[kUnroll];
+      int n = 0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = base + u * kThreads + tid;
+        key[u] = i < hi ? key_at(i) : 0ull;
+        // floor >= 1: live keys only
+        ballot[u] = __ballot_sync(0xffffffffu, key[u] >= win.floor && key[u] < ceiling);
+        n += __popc(ballot[u]);
+      }
+      int slot = 0;
+      if (lane == 0 && n) slot = atomicAdd(count0, n);
+      slot = __shfl_sync(0xffffffffu, slot, 0);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if ((ballot[u] >> lane) & 1u) {
+          wkey0[slot + __popc(ballot[u] & ((1u << lane) - 1u))] = key[u];
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(gbox + base + u * kThreads + tid));
+        }
+        slot += __popc(ballot[u]);
+      }
     }
+    cluster_sync(csize);
+    NMS_STAMP(2);
+    if (first) {
+      const int n = win.count;  // == s_count
+      const int npad = pad_keys(n);
+      for (int i = n + tid; i < npad; i += kThreads) wkey[i] = 0ull;
+      __syncthreads();
+      sort_keys_desc(wkey, npad);
+      __syncthreads();
+      for (int p = tid; p < n; p += kThreads) wbox[p] = gbox[key_index(wkey[p])];
+      __syncthreads();
+      NMS_STAMP(3);
+      nk = scan_chunks<true>(wkey, npad, kept, nk, wbox, gscore,
+                             sel_idx + static_cast<size_t>(img) * K,
+                             sel_scores + static_cast<size_t>(img) * K, K, thr);
+      if (tid == 0) s_more = nk < K && win.state != kFinal;
+      NMS_STAMP(4);
+    }
+    cluster_sync(csize);
+    NMS_STAMP(5);
+    if (!*more0) break;
+    ceiling = win.floor;
   }
-  scan_chunks(gkey, npad, reinterpret_cast<float4*>(smem), gbox, gscore,
-              sel_idx + static_cast<size_t>(img) * K, sel_scores + static_cast<size_t>(img) * K,
-              K, thr);
+  if (first)
+    fill_tail(sel_idx + static_cast<size_t>(img) * K, sel_scores + static_cast<size_t>(img) * K,
+              nk, K);
+  NMS_STAMP_END(first, img);
+  cluster_sync(csize);  // no block leaves while another reads its shared memory
 }
 
-// Shared memory of the global-keys route: a tile of keys during the sort,
-// the kept list after it.
-__host__ __device__ inline size_t global_smem_bytes(int P, int K) {
-  const int npad = pad_keys(P);
-  const size_t tile = static_cast<size_t>(npad < kMaxKeys ? npad : kMaxKeys) * sizeof(u64);
-  const size_t kept = static_cast<size_t>(K < P ? K : P) * sizeof(float4);
-  return tile > kept ? tile : kept;
+// Past 48 KiB of shared memory a block, static arrays (up to 8 KiB here)
+// included, a launch needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 40 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
-
-// The boxes and scores are staged when they fit beside the keys and the
-// kept list.
-inline bool stage_fits(int P, int K) { return smem_bytes(P, K, true) <= kSmemLimit; }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch. (thr_mid, thr_tie_up) is the
-// threshold test of `suppresses`, worked out from iou_thr by the caller. With
-// `key_scratch` null the keys stay in shared memory, and cudaErrorInvalidValue
-// is returned when P is past the keys that fit or the kept list does not fit
-// beside them; with `key_scratch` ([B, pad_keys(P)] 64-bit words) the keys go
-// there (the global-keys route), and cudaErrorInvalidValue is returned when
-// the kept list alone does not fit in shared memory. The wrapper refuses all
-// of these first.
-extern "C" int mbx_nms(const void* boxes, const void* scores, void* sel_idx,
-                       void* sel_scores, void* key_scratch, int B, int P, int K,
-                       float iou_thr, double thr_mid, int thr_tie_up, float score_thr,
+// Returns cudaGetLastError() after the launch, or the error that stopped it.
+// (thr_mid, thr_tie_up) is the threshold test of `suppresses`, worked out
+// from iou_thr by the caller. `window` 0: each image staged whole; else
+// window by window, the first of `window` keys, each refill's four times
+// the last, within `window_max` (powers of two, 64 <= window <= window_max
+// <= kWindowMax), with `cluster` blocks an image (1 .. kMaxCluster; more
+// than 1 launches a thread-block cluster), each block's slice of the scores
+// staged in shared memory when `staged`. cudaErrorInvalidValue when P is
+// past what the kernel indexes, the kept list does not fit beside the image
+// or the window, or `staged` scores do not fit beside them; the wrapper
+// plans within all three first (nms_kernel.nms_plan). A refused cluster
+// launch returns its error.
+extern "C" int mbx_nms(const void* boxes, const void* scores, void* sel_idx, void* sel_scores,
+                       int B, int P, int K, float iou_thr, double thr_mid, int thr_tie_up,
+                       float score_thr, int window, int window_max, int cluster, int staged,
                        void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  if (P <= 0 || P > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  if (P <= 0 || P > (1 << 30) || window < 0 || window_max > kWindowMax ||
+      (window & (window - 1)) || (window_max & (window_max - 1)) ||
+      (window && (window < 64 || window_max < window)) || cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Threshold thr{iou_thr, thr_mid, thr_tie_up != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (key_scratch) {
-    const size_t smem = global_smem_bytes(P, K);
+  const float4* b4 = static_cast<const float4*>(boxes);
+  const float* sc = static_cast<const float*>(scores);
+  int* oi = static_cast<int*>(sel_idx);
+  float* os = static_cast<float*>(sel_scores);
+  if (window == 0) {
+    const size_t smem = full_smem_bytes(P, K);
     if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          nms_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    nms_global_kernel<<<B, kThreads, smem, st>>>(
-        static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-        static_cast<int*>(sel_idx), static_cast<float*>(sel_scores),
-        static_cast<u64*>(key_scratch), P, K, thr, score_thr);
+    cudaError_t e = allow_smem(nms_full_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nms_full_kernel<<<B, kThreads, smem, st>>>(b4, sc, oi, os, P, K, thr, score_thr);
     return static_cast<int>(cudaGetLastError());
   }
-  if (P > kMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
-  const bool staged = stage_fits(P, K);
-  const size_t smem = smem_bytes(P, K, staged);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = staged ? nms_kernel<true> : nms_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<B, kThreads, smem, st>>>(
-      static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-      static_cast<int*>(sel_idx), static_cast<float*>(sel_scores), P, K, thr, score_thr);
+  const int slice = ((P + cluster - 1) / cluster + 3) & ~3;
+  const size_t smem = window_smem_bytes(window_max, K, P, staged ? slice : 0);
+  if (smem > kSmemLimit ||
+      (staged && (static_cast<size_t>(slice) * 4 + kTileBytes - 1) / kTileBytes > kMaxTiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem(nms_window_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, nms_window_kernel, b4, sc, oi, os, P, K, thr, score_thr, window,
+                         window_max, cluster, slice, staged ? 1 : 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -181,9 +181,9 @@ def load_library():
         # (a, priors, out, P, rows, grid_x, grid_y, clip, stream)
         lib.mbx_box_decode.argtypes = [p, p, p, i, ll, u, u, i, p]
         lib.mbx_box_encode.argtypes = [p, p, p, i, ll, u, u, p]
-        # (boxes, scores, sel_idx, sel_scores, key_scratch, B, P, K, iou_thr,
-        #  thr_mid, thr_tie_up, score_thr, stream)
-        lib.mbx_nms.argtypes = [p, p, p, p, p, i, i, i, f, ctypes.c_double, i, f, p]
+        # (boxes, scores, sel_idx, sel_scores, B, P, K, iou_thr, thr_mid,
+        #  thr_tie_up, score_thr, window, window_max, cluster, bulk, stream)
+        lib.mbx_nms.argtypes = [p, p, p, p, i, i, i, f, ctypes.c_double, i, f, i, i, i, i, p]
         # (x, w, b, out, workspace, M, K, N, relu, is_bf16, route, split,
         #  kslice, tile_n, blocks, stages, resident, stream)
         lib.mbx_fused_matmul.argtypes = [p, p, p, p, p] + [i] * 12 + [p]

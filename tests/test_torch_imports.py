@@ -401,17 +401,55 @@ def test_kernels_match_their_plain_versions_on_the_card():
         idx, sc = nms_kernel.nms_select(b, s, k, 0.5, thr)
         want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, thr)
         assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
-    # a kept list larger than shared memory by itself is refused; one that
-    # does not fit beside the keys takes the global-keys route
+    # a kept list that does not fit beside a window is refused, and so are
+    # boxes off a 16-byte boundary (one float4 a box)
     with pytest.raises(ValueError, match="kept list"):
         nms_kernel.nms_select(torch.zeros(1, 20000, 4, device=dev),
                               torch.zeros(1, 20000, device=dev), 20000)
-    for P, k in ((9468, 9468), (18936, 100), (40000, 200)):
-        assert nms_kernel.nms_route(P, k) == "global"
+    with pytest.raises(ValueError, match="16-byte"):
+        nms_kernel.nms_select(torch.zeros(4001, device=dev)[1:].view(1, 1000, 4),
+                              torch.zeros(1, 1000, device=dev), 10)
+    # window by window past 1,024 boxes: a kept list of P boxes (the window
+    # used up again and again), equal scores (the index digits decide),
+    # scores near 0.5, P = 40,000, and scores off a 16-byte boundary (the
+    # bulk copies' ragged ends)
+    for P, k, kind in ((9468, 9468, "uniform"), (18936, 100, "uniform"),
+                       (40000, 200, "uniform"), (9468, 200, "equal"),
+                       (40000, 200, "concentrated"), (9470, 100, "offset")):
+        plan = nms_kernel.nms_plan(2, P, k, nms_kernel.sm_count(dev))
+        assert nms_kernel.nms_fits(P, k) and plan.window > 0 and plan.staged
         b = t(np.sort(rng.uniform(0, 1, (2, P, 2, 2)), axis=2).reshape(2, P, 4)).to(dev)
-        s = t(rng.uniform(0, 1, (2, P))).to(dev)
+        s = t(np.full((2, P), 0.5) if kind == "equal" else
+              0.5 + rng.normal(0, 1e-3, (2, P)) if kind == "concentrated" else
+              rng.uniform(0, 1, (2, P))).to(dev)
+        if kind == "offset":
+            s = torch.cat([torch.zeros(1, device=dev), s.flatten()])[1:].view(2, P)
+            assert s.data_ptr() % 16
         idx, sc = nms_kernel.nms_select(b, s, k, 0.5, 0.05)
         want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, 0.05)
+        assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    # the refill: K large and suppression heavy, so the scan uses up its
+    # window and goes on below the floor with the same kept list
+    centre = np.sort(rng.uniform(0.3, 0.7, (2, 1, 2, 2)), axis=2).reshape(2, 1, 4)
+    b = t(np.clip(centre + rng.normal(0, 0.05, (2, 9468, 4)), 0, 1)).to(dev)
+    s = t(rng.uniform(0, 1, (2, 9468))).to(dev)
+    idx, sc = nms_kernel.nms_select(b, s, 3000, 0.3, 0.0)
+    want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, 3000, 0.3, 0.0)
+    assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    _, _, work = nms_kernel.sorted_scan_emulation(b.cpu().numpy(), s.cpu().numpy(), 3000,
+                                                  0.3, 0.0)
+    assert work.windows.min() >= 2
+    # scores read from global memory at every pass, past what a block stages:
+    # 64 images of 50,000 boxes (one block each), and a kept list at nms_fits'
+    # limit beside a cluster's slices (small boxes: K fills window after window)
+    for B, P, k, side in ((64, 50000, 100, (0.02, 0.6)), (1, 40000, 11968, (0.002, 0.02))):
+        plan = nms_kernel.nms_plan(B, P, k, nms_kernel.sm_count(dev))
+        assert nms_kernel.nms_fits(P, k) and plan.window > 0 and not plan.staged
+        lo = rng.uniform(0, 1 - side[1], (B, P, 2))
+        b = t(np.concatenate([lo, lo + rng.uniform(*side, (B, P, 2))], -1)).to(dev)
+        s = t(rng.uniform(0, 1, (B, P))).to(dev)
+        idx, sc = nms_kernel.nms_select(b, s, k, 0.5, 0.0)
+        want_idx, want_sc = nms_kernel.nms_batched_plain(b, s, k, 0.5, 0.0)
         assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
     x, w, b = (t(rng.normal(0, 1, s)).to(dev) for s in ((33, 130), (130, 70), (70,)))
     torch.testing.assert_close(

@@ -27,7 +27,12 @@ the kernels cannot run.
   kept list and against themselves, the in-order resolution, the cut at K)
   gives exactly the indices, scores and counts of the plain version, of the
   JAX package's ``_nms_jnp`` and of its Pallas kernel in interpret mode, on
-  the card's edge cases and on tie-heavy grid boxes drawn by hypothesis.
+  the card's edge cases and on tie-heavy grid boxes drawn by hypothesis;
+  and so does it window by window (``nms_kernel.radix_select``: digit
+  histograms, the floor, the refill below it), with windows small enough
+  that the refill runs, at P = 9,468 with all-equal scores and scores
+  inside one exponent. Each window is the next prefix of ``np.argsort``'s
+  order.
 - B3's launch plan (``box_kernel._plan``) covers every box once at the
   main and SSD shapes, with either priors layout, one box, and more rows
   than a grid's y limit.
@@ -506,11 +511,14 @@ def _jax_nms(K):
         lambda bb, ss: _nms_jnp(bb, ss, K, iou, thr))(b, s))
 
 
-def check_sorted_scan(boxes, scores, K, iou, thr, pallas=False):
-    """The emulation against the plain version and the JAX spec exactly;
-    with ``pallas`` also against the Pallas kernel in interpret mode.
-    Returns the chunks run."""
-    got_idx, got_scores, chunks = nms_kernel.sorted_scan_emulation(boxes, scores, K, iou, thr)
+def check_sorted_scan(boxes, scores, K, iou, thr, pallas=False, window=None, window_max=None):
+    """The emulation (on the wrapper's plan, or ``window`` keys at a time,
+    each refill's four times the last up to ``window_max``) against the plain
+    version and the JAX spec exactly; with ``pallas`` also against the
+    Pallas kernel in interpret mode. Returns the work
+    (``nms_kernel.ScanWork``)."""
+    got_idx, got_scores, work = nms_kernel.sorted_scan_emulation(
+        boxes, scores, K, iou, thr, window=window, window_max=window_max)
     want_idx, want_scores = nms_kernel.nms_batched_plain(
         torch.from_numpy(boxes), torch.from_numpy(scores), K, iou, thr)
     np.testing.assert_array_equal(got_idx, want_idx.numpy())
@@ -524,17 +532,33 @@ def check_sorted_scan(boxes, scores, K, iou, thr, pallas=False):
         np.testing.assert_array_equal(got_idx, np.asarray(ref_idx))
         np.testing.assert_array_equal(got_scores, np.asarray(ref_scores))
         np.testing.assert_array_equal((got_idx >= 0).sum(1), np.asarray(ref_num))
-    return chunks
+    return work
 
 
 @pytest.mark.parametrize("case", nms_edge_cases(), ids=lambda c: c[0])
 def test_sorted_scan_gives_the_spec_on_the_edge_cases(case):
     name, boxes, scores, K, iou, thr = case
-    chunks = check_sorted_scan(boxes, scores, K, iou, thr, pallas=True)
+    work = check_sorted_scan(boxes, scores, K, iou, thr, pallas=True)
+    chunks = work.chunks
     if name == "dense_cluster":  # most candidates suppressed: every chunk runs
         assert chunks.min() == 2
     if name == "all_dead":
         assert chunks.max() == 0
+    assert work.windows.tolist() == [1] * len(chunks) and work.passes.max() == 0  # staged whole
+
+
+@pytest.mark.parametrize("case", nms_edge_cases(), ids=lambda c: c[0])
+def test_windowed_scan_gives_the_spec_on_the_edge_cases(case):
+    """The same cases window by window: a window of 16 keys (the kernel's
+    are 64 or more, the algorithm is the same), so that the selection, its
+    digit passes and the refill run on every edge (signed zeros, NaN and
+    infinities, all equal, all dead, K past P)."""
+    name, boxes, scores, K, iou, thr = case
+    work = check_sorted_scan(boxes, scores, K, iou, thr, pallas=True, window=16)
+    live = np.stack([nms_kernel.nms_keys(s, thr) != 0 for s in scores]).sum(1)
+    assert (work.windows >= 1).all() and (work.passes >= 1).all()
+    if name in ("k_equals_p", "k_above_p"):  # every live key is read: one window a 16
+        assert (work.windows >= np.ceil(live / 16)).all()
 
 
 def test_sorted_scan_orders_signed_zeros_by_index():
@@ -567,11 +591,22 @@ def test_sorted_scan_gives_the_spec_on_tie_heavy_grid_boxes(world):
     check_sorted_scan(*world)
 
 
+@settings(max_examples=40, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(tie_heavy_nms_worlds(), st.sampled_from((2, 4, 16)))
+def test_windowed_scan_gives_the_spec_on_tie_heavy_grid_boxes(world, window):
+    """Tie-heavy scores (five levels, ±0.0) window by window, down to
+    windows of 2 keys: the selection's index digits decide among equal
+    scores, and the refill goes on from each floor."""
+    check_sorted_scan(*world, window=window)
+
+
 def brute_force_iou_tests(boxes, scores, sel_idx, K, iou, thr):
     """Greedy NMS's IoU tests, one pair at a time through the plain
     version's IoU: live candidates by (score descending, index ascending),
-    each against the kept boxes in order up to the first above ``iou``."""
-    tests = 0
+    each against the kept boxes in order up to the first above ``iou``.
+    Returns the tests and the candidates visited."""
+    tests = visited = 0
     for b in range(scores.shape[0]):
         live = [i for i in range(scores.shape[1])
                 if scores[b, i] >= np.float32(thr) and scores[b, i] != -np.inf]
@@ -579,6 +614,7 @@ def brute_force_iou_tests(boxes, scores, sel_idx, K, iou, thr):
         for c in sorted(live, key=lambda i: (-float(scores[b, i]), i)):
             if len(kept) == K:
                 break
+            visited += 1
             for n, k in enumerate(kept):
                 pair = torch.from_numpy(boxes[b, [k, c]])
                 if float(box_ops.iou_pairwise(pair[0], pair[1])) > np.float32(iou):
@@ -588,7 +624,7 @@ def brute_force_iou_tests(boxes, scores, sel_idx, K, iou, thr):
                 tests += len(kept)
                 kept.append(c)
         assert kept == [i for i in sel_idx[b] if i >= 0]
-    return tests
+    return tests, visited
 
 
 @pytest.mark.parametrize("case", [c for c in nms_edge_cases()
@@ -600,8 +636,23 @@ def test_greedy_iou_tests_count_the_work_the_selection_needs(case):
     _, boxes, scores, K, iou, thr = case
     idx, _ = nms_kernel.nms_batched_plain(torch.from_numpy(boxes), torch.from_numpy(scores),
                                           K, iou, thr)
-    want = brute_force_iou_tests(boxes, scores, idx.numpy(), K, iou, thr)
+    want, _ = brute_force_iou_tests(boxes, scores, idx.numpy(), K, iou, thr)
     assert nms_kernel.greedy_iou_tests(boxes, scores, idx.numpy(), iou, thr) == want
+
+
+@pytest.mark.parametrize("case", [c for c in nms_edge_cases()
+                                  if c[0] in ("random", "signed_zeros", "nan_and_inf_thresholded",
+                                              "dense_cluster", "k_equals_p", "all_dead")],
+                         ids=lambda c: c[0])
+def test_greedy_candidates_count_the_boxes_the_selection_reads(case):
+    """``greedy_candidates``, the boxes ``chip_smoke.py``'s byte bound of
+    B1 counts: the candidates greedy NMS visits, up to the K-th kept or
+    every live one."""
+    _, boxes, scores, K, iou, thr = case
+    idx, _ = nms_kernel.nms_batched_plain(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                          K, iou, thr)
+    _, want = brute_force_iou_tests(boxes, scores, idx.numpy(), K, iou, thr)
+    assert nms_kernel.greedy_candidates(scores, idx.numpy(), thr) == want
 
 
 def test_greedy_iou_tests_on_disjoint_boxes_and_a_wrong_selection():
@@ -617,55 +668,155 @@ def test_greedy_iou_tests_on_disjoint_boxes_and_a_wrong_selection():
 
 
 @pytest.mark.parametrize("P,K,fits", [
-    (256, 100, True), (1, 1, True), (9468, 200, True), (8192, 8192, True),
-    (16384, 5312, True), (16384, 5313, False), (9468, 9468, False)])
-def test_nms_kept_list_fits_beside_the_keys(P, K, fits):
-    """The wrapper's refusal: 8 B a key (P padded to a power of two) and 16 B
-    a kept box within csrc/nms.cu's 211 KiB of shared memory."""
-    assert nms_kernel.kept_list_fits(P, K) is fits
-
-
-@pytest.mark.parametrize("P,K,route", [
-    (256, 100, "shared"), (16384, 100, "shared"), (16384, 5312, "shared"),
-    (16385, 100, "global"), (18936, 100, "global"), (40000, 200, "global"),
-    (16384, 5313, "global"), (9468, 9468, "global"), (13504, 13504, "global"),
-    (40000, 13504, "global"), (13505, 13505, None), (40000, 20000, None),
-    (nms_kernel.MAX_P + 1, 100, None)],
-    ids=lambda v: str(v))
-def test_nms_route_at_the_boundaries(P, K, route):
-    """The wrapper's route: the shared one while the keys (P padded to a
-    power of two) and the kept list fit beside each other; else the
-    global-keys route while the kept list alone fits (16 B a box in 211 KiB,
-    13,504 boxes); else a refusal, as for more boxes than the kernel
-    indexes."""
-    if route is None:
-        with pytest.raises(ValueError):
-            nms_kernel.nms_route(P, K)
+    (256, 100, True), (1, 1, True), (1024, 1024, True), (1025, 100, True), (9468, 200, True),
+    (9468, 9468, True), (18936, 100, True), (40000, 200, True), (40000, 11968, True),
+    (40000, 11969, False), (20000, 20000, False), (nms_kernel.MAX_P, 200, True),
+    (nms_kernel.MAX_P + 1, 200, False)], ids=lambda v: str(v))
+def test_nms_fits_at_the_boundaries(P, K, fits):
+    """The wrapper's one refusal: more boxes than the kernel indexes, or a
+    kept list (16 B a box) that does not fit in csrc/nms.cu's 211 KiB of
+    shared memory beside its window (24 B a key; 1,024 keys for K past 256:
+    11,968 boxes); an image of at most 1,024 boxes is staged whole, kept
+    list and all. :func:`nms_plan` raises where it does not fit, else plans
+    the one kernel for every P: staged whole up to 1,024 boxes, else
+    window by window, 1 to 8 blocks an image within half the SMs."""
+    assert nms_kernel.nms_fits(P, K) is fits
+    if fits:
+        plan = nms_kernel.nms_plan(4, P, K, 132)
+        if P <= nms_kernel.WHOLE:
+            assert plan == nms_kernel.NmsPlan(0, 0, 1, False)
+        else:
+            assert plan.window == nms_kernel.window_for(K)
+            assert 256 <= plan.window <= 1024 and plan.window >= min(2 * K, 1024)
+            assert plan.window <= plan.window_max <= nms_kernel.MAX_WINDOW == 2048
+            assert plan.window_max * 24 + min(K, P) * 16 <= nms_kernel.SMEM_LIMIT
+            assert plan.window_max == 2048 or plan.window_max == plan.window or \
+                2 * plan.window_max * 24 + min(K, P) * 16 > nms_kernel.SMEM_LIMIT
+            assert 1 <= plan.cluster <= nms_kernel.MAX_CLUSTER
+            assert 4 * plan.cluster <= 132 // 2
+            assert plan.staged == nms_kernel.scores_staged(P, K, plan.window_max, plan.cluster)
     else:
-        assert nms_kernel.nms_route(P, K) == route
+        with pytest.raises(ValueError):
+            nms_kernel.nms_plan(4, P, K, 132)
 
 
-@pytest.mark.parametrize("n,tile", [(64, 64), (256, 64), (1024, 128), (4096, 256)])
-def test_tiled_bitonic_sort_is_the_descending_order(n, tile):
-    """The global-keys route's network (tiles sorted on their own, then the
-    merges of larger strides over the whole sequence and the smaller ones
-    tile by tile) sorts descending: random 64-bit keys with dead (0) ones
-    and repeats, and the keys of real scores."""
-    rng = np.random.default_rng(n)
-    keys = rng.integers(0, 2**63, n, dtype=np.uint64) * np.uint64(2)
-    keys[rng.random(n) < 0.2] = 0
-    keys[: n // 8] = keys[n // 8: n // 4]
-    np.testing.assert_array_equal(nms_kernel.tiled_bitonic_sort(keys, tile),
-                                  np.sort(keys)[::-1])
-    scores = rng.uniform(0, 1, n).astype(np.float32)
-    order = nms_kernel._candidates(scores, 0.1)
-    bits = (scores + np.float32(0)).view(np.uint32)
-    live = ((bits | np.uint32(0x80000000)).astype(np.uint64) << np.uint64(32)) | \
-        (~np.arange(n, dtype=np.uint32)).astype(np.uint64)
-    live[scores < np.float32(0.1)] = 0
-    got = nms_kernel.tiled_bitonic_sort(live, tile)
-    assert [int(~np.uint32(k & np.uint64(0xFFFFFFFF))) for k in got[:len(order)]] == \
-        order.tolist()
+@pytest.mark.parametrize("sms,B,P,cluster", [
+    (132, 4, 40000, 8), (132, 32, 18936, 2), (132, 8, 9468, 4), (132, 4, 4096, 1),
+    (132, 8, 40000, 8), (114, 8, 40000, 4), (114, 32, 18936, 1), (16, 4, 40000, 2)],
+    ids=lambda v: str(v))
+def test_nms_plan_clusters_follow_the_cards_sms(sms, B, P, cluster):
+    """The cluster an image: the largest of 1, 2, 4, 8 blocks that keeps B ×
+    cluster within half the card's SMs (132 on an H100 SXM, 114 on an H100
+    PCIe) and 2,048 keys a block, past 8,192 boxes."""
+    assert nms_kernel.nms_plan(B, P, 100, sms).cluster == cluster
+
+
+@pytest.mark.parametrize("B,P,K,staged", [
+    (4, 9468, 200, True), (32, 18936, 100, True), (4, 40000, 200, True),
+    (2, 9468, 9468, True), (1, 40000, 8000, True), (64, 50000, 100, False),
+    (1, 40000, 11968, False), (1, 2 ** 20, 100, False)], ids=lambda v: str(v))
+def test_scores_are_staged_where_they_fit(B, P, K, staged):
+    """A block's slice of scores is staged when, 16 B more to align the
+    bulk copies, it fits csrc/nms.cu's 211 KiB beside the window's room (24
+    B a key) and the kept list (16 B a box), in at most 16 tiles of 16 KiB;
+    else every pass reads it from global memory (64 images of 50,000 boxes,
+    one block each; a kept list of 11,968 beside slices of 5,000)."""
+    plan = nms_kernel.nms_plan(B, P, K, 132)
+    slice_ = (-(-P // plan.cluster) + 3) // 4 * 4
+    fits = plan.window_max * 24 + min(K, P) * 16 + (slice_ + 4) * 4 <= 227 * 1024 - 16 * 1024
+    assert plan.window > 0 and plan.staged is staged
+    assert staged == (fits and slice_ * 4 <= 16 * 16384)
+
+
+def selection_keys(kind, n, rng):
+    """One image's keys (``nms_kernel.nms_keys``) for the selection tests."""
+    thr = float("-inf")
+    if kind == "uniform":
+        s = rng.uniform(0, 1, n)
+    elif kind == "all_equal":
+        s = np.full(n, 0.5)
+    elif kind == "one_exponent":  # [0.5, 1): only the mantissa digits differ
+        s = rng.uniform(0.5, 1, n)
+    elif kind == "concentrated":  # what random weights give: every score near 0.5
+        s = 0.5 + rng.normal(0, 1e-4, n)
+    elif kind == "signed_zeros":
+        s = rng.choice(np.array([0.0, -0.0, 0.25, -0.25]), n)
+    elif kind == "nan_inf_dead":
+        s = rng.uniform(-1, 1, n)
+        s[::5], s[1::7], s[2::11] = np.nan, np.inf, -np.inf
+        thr = 0.0
+    else:  # "few_levels": long runs of equal scores
+        s = rng.integers(0, 3, n) / 4
+    return nms_kernel.nms_keys(np.asarray(s, np.float32), thr)
+
+
+@pytest.mark.parametrize("cap", (64, 1024))
+@pytest.mark.parametrize("kind", ("uniform", "all_equal", "one_exponent", "concentrated",
+                                  "signed_zeros", "nan_inf_dead", "few_levels"))
+def test_radix_select_windows_are_the_order_cut_in_prefixes(kind, cap):
+    """Window after window below the last floor, as the kernel refills: each
+    is exactly the next ``count`` keys of the descending order
+    (``np.argsort``), at least half the window and at most all of it (all
+    that is left when it is the last), and the windows together are every
+    live key once. Equal scores cost passes over the index digits, never a
+    wrong window."""
+    rng = np.random.default_rng(cap)
+    keys = selection_keys(kind, 9468, rng)
+    order = np.sort(keys[keys != 0])[::-1]
+    ceiling, taken, passes = nms_kernel.NO_CEILING, 0, []
+    while True:
+        win = nms_kernel.radix_select(keys, ceiling, cap)
+        inside = keys[(keys >= np.uint64(win.floor)) & (keys < np.uint64(ceiling))]
+        assert len(inside) == win.count
+        np.testing.assert_array_equal(np.sort(inside)[::-1], order[taken:taken + win.count])
+        taken += win.count
+        passes.append(win.passes)
+        if win.final:
+            break
+        assert cap // 2 <= win.count <= cap and win.floor > 1
+        ceiling = win.floor
+    assert taken == len(order) and win.count <= cap
+    assert max(passes) <= 64 // nms_kernel.DIGIT_BITS
+    if kind == "all_equal":  # one pass on the shared score, then the index digits
+        assert passes[0] <= 3
+
+
+def test_radix_select_on_no_live_key_and_on_one():
+    keys = np.zeros(100, np.uint64)
+    assert nms_kernel.radix_select(keys) == nms_kernel.Window(1, 0, 1, True)
+    keys[37] = nms_kernel.nms_keys(np.full(100, 0.25, np.float32), 0.0)[37]
+    assert nms_kernel.radix_select(keys, cap=64) == nms_kernel.Window(1, 1, 1, True)
+    assert nms_kernel.radix_select(keys, ceiling=int(keys[37]), cap=64).count == 0
+
+
+@pytest.mark.parametrize("kind", ("all_equal", "one_exponent"))
+def test_windowed_scan_at_the_ssd_prior_count(kind):
+    """P = 9,468 on the wrapper's windows (``nms_windows``: a first window
+    of ``window_for(100)`` = 256 keys, each refill's four times the last up
+    to 2,048): all-equal scores, where only the index digits tell the keys
+    apart, and scores inside one float exponent; exactly the plain version,
+    the JAX spec and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(9468)
+    boxes = random_nms_boxes(rng, 2, 9468)
+    scores = (np.full((2, 9468), 0.5) if kind == "all_equal"
+              else rng.uniform(0.5, 1.0, (2, 9468))).astype(np.float32)
+    work = check_sorted_scan(boxes, scores, 100, 0.5, 0.0, pallas=True)
+    assert (work.passes >= 2).all() and (work.windows >= 1).all()
+
+
+@pytest.mark.parametrize("window_max", (64, 256))
+def test_windowed_scan_refills_with_the_same_kept_list(window_max):
+    """K large and windows small: the scan uses up window after window
+    (at least three) and goes on below each floor with the boxes kept so
+    far, on boxes where some are kept and many suppressed; with each
+    refill's window four times the last within a room of 256 keys (64,
+    256, 256, ...), or all of 64."""
+    rng = np.random.default_rng(3)
+    boxes = random_nms_boxes(rng, 2, 600, 0.02, 0.2)
+    scores = rng.uniform(0, 1, (2, 600)).astype(np.float32)
+    work = check_sorted_scan(boxes, scores, 400, 0.3, 0.05, pallas=True, window=64,
+                             window_max=window_max)
+    assert (work.windows >= 3).all()
 
 
 def test_plain_nms_at_the_flip_tta_candidate_count_is_the_jax_spec():
@@ -684,9 +835,9 @@ def test_plain_nms_at_the_flip_tta_candidate_count_is_the_jax_spec():
     np.testing.assert_array_equal(got_idx.numpy(), np.asarray(ref_idx))
     np.testing.assert_array_equal(got_scores.numpy(), np.asarray(ref_scores))
     np.testing.assert_array_equal((got_idx >= 0).sum(1).numpy(), np.asarray(ref_num))
-    emu_idx, _, _ = nms_kernel.sorted_scan_emulation(boxes, scores, 100, 0.5, 0.05)
+    emu_idx, _, work = nms_kernel.sorted_scan_emulation(boxes, scores, 100, 0.5, 0.05)
     np.testing.assert_array_equal(emu_idx, got_idx.numpy())
-    assert nms_kernel.nms_route(18936, 100) == "global"
+    assert nms_kernel.nms_fits(18936, 100) and (work.passes >= 1).all()
 
 
 # ------------------------------------------------------------ B3: the plan
