@@ -87,7 +87,7 @@ read just after) and that what comes out is right, stage by stage:
   priors a cell from ``cli.priors --mode multiscale``: P = 9,468; batch
   32, G = 16, dense matching at 0.5, center/log-scale encoding):
   ``train_from_batches`` with use_pallas=True for 6 steps (the matching
-  kernel on its global-scratch route, held exactly against its plain
+  kernel on a cluster of blocks an image, held exactly against its plain
   version on the step's own boxes and timed), one batch overfitted,
   detect as shipped over 3 batches (the NMS kernel at P = 9,468, K = 100,
   exact at the path's own inputs), the same model at 20 classes (2 steps,
@@ -141,8 +141,9 @@ atol 1e-4 (a sum over K = 6144 in another order), bfloat16 output rtol
 wgmma_bf16, general) at its ragged edges, the head at 128 rows and
 coco_dp's head at 256 rows, and a second launch on the same inputs
 bit-equal (the split along K is summed in a fixed order); the wgmma
-kernels' SASS must hold HGMMA and TMA loads, and B1's window kernel bulk
-copies, mbarrier waits, the cluster barrier, generic atomics and MATCH
+kernels' SASS must hold HGMMA and TMA loads, B1's window kernel bulk
+copies, mbarrier waits, the cluster barrier, generic atomics and MATCH,
+and B4's kernels bulk copies, mbarrier waits and the cluster barrier
 (cuobjdump); the
 matmul's backward float32 rtol 1e-4 / atol 1e-4; Hungarian assignments
 on the card equal to the CPU's and to scipy's (after a check that they
@@ -256,18 +257,24 @@ DEV = resolve_device(None)
 # compaction's atomic on the first block's counter, through a generic
 # address that may be a peer block's shared memory), MATCH (__match_any_sync)
 B1_SASS = ("UBLKCP", "SYNCS", "UCGABAR", "ATOM.E.ADD", "MATCH")
+# and B4's match_kernel<R, W> (one kernel for every P and plan, by rows a
+# lane and window): the prior
+# tiles' bulk copies, their mbarrier waits, the cluster barrier of the
+# clustered plan
+B4_SASS = ("UBLKCP", "SYNCS", "UCGABAR")
 
 
 def sass_counts(lib_path):
     """From ``cuobjdump -sass`` of the built library: HGMMA (wgmma), UTMALDG
-    and UTMASTG (TMA load and store) in each of B2's wgmma kernels, and the
+    and UTMASTG (TMA load and store) in each of B2's wgmma kernels, the
     B1_SASS instructions in B1's window kernel (its staged-whole kernel
-    stages by plain loads). Fails if a wgmma kernel lacks HGMMA or TMA
-    loads, or B1's window kernel one of B1_SASS."""
+    stages by plain loads) and the B4_SASS ones in each of B4's kernels.
+    Fails if a wgmma kernel lacks HGMMA or TMA loads, B1's window kernel one
+    of B1_SASS or a B4 kernel one of B4_SASS."""
     tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    counts, b1, name = {}, {}, None
+    counts, b1, b4, name = {}, {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             found = re.search(r"wgmma_kernelILi(\d+)E", line)
@@ -277,18 +284,27 @@ def sass_counts(lib_path):
             if "nms_window_kernel" in line:
                 name = "nms_window_kernel"
                 b1[name] = dict.fromkeys(B1_SASS, 0)
+            found = re.search(r"match_kernelILi(\d+)ELi(\d+)E", line)
+            if found:
+                name = f"match_kernel<{found.group(1)}, {found.group(2)}>"
+                b4[name] = dict.fromkeys(B4_SASS, 0)
         elif name in counts:
             for op in counts[name]:
                 counts[name][op] += op in line
         elif name in b1:
             for op in B1_SASS:
                 b1[name][op] += op in line
+        elif name in b4:
+            for op in B4_SASS:
+                b4[name][op] += op in line
     if len(counts) != 4 or any(not c["HGMMA"] or not c["UTMALDG"] for c in counts.values()):
         raise AssertionError(f"B2's wgmma kernels lack HGMMA or TMA loads: {counts}")
     window = b1.get("nms_window_kernel", {})
     if not all(window.get(op) for op in B1_SASS):
         raise AssertionError(f"B1's kernels lack bulk copies, mbarriers or clusters: {b1}")
-    return counts, b1
+    if len(b4) != 6 or not all(all(c.values()) for c in b4.values()):
+        raise AssertionError(f"B4's kernels lack bulk copies, mbarriers or clusters: {b4}")
+    return counts, b1, b4
 
 
 def emit(obj) -> None:
@@ -797,7 +813,17 @@ def match_cases(rng):
                 random_boxes(rng, (P,)))
 
     cases = [("slice", *world(32, 16, 256)), ("coco_dp", *world(8, 64, 512)),
-             ("ssd_scratch", *world(2, 128, 9468))]
+             ("ssd", *world(32, 16, 9468)), ("rank_b16", *world(16, 16, 256)),
+             ("rank_b16_ssd", *world(16, 16, 9468))]
+    gt, num, pri = world(2, 128, 9468)
+    num[:] = 128  # the largest lists: 128 rows of 128 keys
+    cases.append(("g128_p9468", gt, num, pri))
+    gt, num, pri = world(4, 16, 9468)
+    pri[:] = pri[0]  # every prior the same box: all IoUs of a row equal
+    num[:] = 16
+    cases.append(("all_equal_p9468", gt, num, pri))
+    cases.append(("p40000", *world(4, 16, 40000)))  # many prior tiles a block
+    cases.append(("p1", *world(4, 16, 1, lo=0)))
     gt, num, pri = world(4, 16, 256)
     gt[:, 1] = gt[:, 0]  # duplicated gt boxes: equal IoU rows
     gt[:, 5] = 0.5  # zero-area box: a row of zero IoU everywhere
@@ -816,9 +842,21 @@ def match_cases(rng):
 
 
 def match_work(num, G, P):
-    """Operations greedy matching needs on this data: the IoU of each live
-    row (about 19 f32 operations a cell), then a compare and a select for
-    every live cell of every round."""
+    """Operations greedy matching needs on this data, as csrc/match.cu does
+    it: the IoU of each live cell (19 f32 operations), one compare a cell to
+    select the rows' lists, and n − k compares in round k (the arg-max over
+    the live rows' heads)."""
+    ops = 0
+    for n in np.clip(num, 0, G):
+        n = int(n)
+        ops += n * P * 20 + sum(n - k for k in range(min(n, P)))
+    return ops
+
+
+def match_work_scan(num, G, P):
+    """The naive scan's work (``bound_ms_scan_model``, the model of the
+    kernel that kept the whole IoU matrix): each live cell's IoU, then a
+    compare and a select for every live cell of every round."""
     ops = 0
     for n in np.clip(num, 0, G):
         n = int(n)
@@ -826,10 +864,37 @@ def match_work(num, G, P):
     return ops
 
 
+def match_timed(gt, num, pri):
+    """B4 on these inputs (on the card, already held exact): its plan, ms,
+    bound (:func:`match_work`, and :func:`match_work_scan` beside it),
+    the plain version's ms and the rounds."""
+    B, G = gt.shape[:2]
+    P = pri.shape[0]
+    n = num.cpu().numpy()
+    plan = match_kernel.device_plan(B, G, P, DEV)
+    nbytes = B * G * 16 + B * 4 + P * 16 + B * G * 4
+    bound_ms, bound_by = bound(nbytes, match_work(n, G, P), "float32")
+    ms = time_ms(lambda: match_kernel.greedy_match_cuda(gt, num, pri))
+    return {"shape": f"B={B} G={G} P={P}",
+            "plan": {"cluster": plan.cluster, "images_a_block": plan.images,
+                     "tile": plan.tile,
+                     "tiles_a_block": -(-match_kernel.slice_cols(P, plan.cluster) // plan.tile),
+                     "smem": plan.smem},
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "bound_ms_scan_model": bound(nbytes, match_work_scan(n, G, P), "float32")[0],
+            "library_ms": None,
+            "plain_ms": time_ms(lambda: match_kernel.greedy_match_plain(gt, num, pri),
+                                reps=5, warmup=1),
+            "rounds_run": int(np.minimum(n, P).sum()),
+            "rounds_slowest_image": int(np.minimum(n, P).max())}
+
+
 def check_match(rng):
     """B4: assignments exact against the plain version on every case. The
-    entry is timed at the train slice's shape (B=32, G=16, P=256), and the
-    block route's G = 64 / P = 512 beside it."""
+    entry is timed at the train slice's shape (B=32, G=16, P=256), and
+    beside it B=8 G=64 P=512, SSD's P = 9,468 at B=32 G=16 and the largest
+    lists (G = n = 128 at P = 9,468)."""
     cases = match_cases(rng)
     for name, gt, num, pri in cases:
         tg, tn, tp = dev(gt), dev(num), dev(pri)
@@ -839,35 +904,16 @@ def check_match(rng):
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"match[{name}]: assignments differ at {bad}")
-    _, gt64, num64, pri64 = cases[1]
-    tg, tn, tp = dev(gt64), dev(num64), dev(pri64)
-    g64_ms = time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp))
-    g64_bound, g64_by = bound(8 * 64 * 16 + 8 * 4 + 512 * 16 + 8 * 64 * 4,
-                              match_work(num64, 64, 512), "float32")
-    g64 = {"shape": "B=8 G=64 P=512", "ms": g64_ms, "bound_ms": g64_bound,
-           "bound_by": g64_by, "share_of_bound": g64_bound / g64_ms,
-           "plain_ms": time_ms(lambda: match_kernel.greedy_match_plain(tg, tn, tp),
-                               reps=5, warmup=1),
-           "rounds_slowest_image": int(np.minimum(num64, 512).max()),
-           "rounds_run": int(np.minimum(num64, 512).sum())}
-    _, gt, num, pri = cases[0]
-    tg, tn, tp = dev(gt), dev(num), dev(pri)
-    ms = time_ms(lambda: match_kernel.greedy_match_cuda(tg, tn, tp))
-    plain_ms = time_ms(lambda: match_kernel.greedy_match_plain(tg, tn, tp), reps=5, warmup=1)
-    B, G = gt.shape[:2]
-    P = pri.shape[0]
-    bound_ms, bound_by = bound(B * G * 16 + B * 4 + P * 16 + B * G * 4,
-                               match_work(num, G, P), "float32")
+    by_name = {c[0]: [dev(a) for a in c[1:]] for c in cases}
+    main = match_timed(*by_name["slice"])
     return {
         "name": "match", "route": "cuda",
         "source": "multibox_tpu_torch/csrc/match.cu",
         "replaces": "multibox_tpu/ops/pallas/match_kernel.py:101",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "tolerance": "assignments exact", "shape": f"B={B} G={G} P={P}",
-        "rounds_run": int(np.minimum(num, P).sum()),
-        "rounds_slowest_image": int(np.minimum(num, P).max()),
-        "g64_p512": g64,
+        "max_abs_err": 0.0, **main, "tolerance": "assignments exact",
+        "g64_p512": match_timed(*by_name["coco_dp"]),
+        "p9468_random": match_timed(*by_name["ssd"]),
+        "g128_p9468": match_timed(*by_name["g128_p9468"]),
         "cases": [c[0] for c in cases],
     }
 
@@ -2994,29 +3040,26 @@ def augmented(cfg, state, batch):
     return augment.augment_batch(gen, db["images"], db["boxes"], db["num_boxes"], cfg)
 
 
+# B4's inputs at the paths' own step boxes, one file a path, for
+# scripts/torch_kernel_design.py --match_inputs (which times an older kernel
+# on them)
+MATCH_INPUTS = os.path.join(".work", "chip_smoke_match")
+
+
 def match_at_step_boxes(name, boxes, num, tpriors):
     """B4 on one augmented batch of the path (the step's own boxes):
-    assignments exact against the plain version, then timed, with the
-    bound from the rounds this data needs. Reports the route (shared
-    memory, or the global scratch when G·P·4 bytes do not fit)."""
+    assignments exact against the plain version, then timed on its plan
+    (:func:`match_timed`), with the bound from what this data needs. The
+    inputs are kept in MATCH_INPUTS/<name>_B<B>_G<G>_P<P>.pt."""
+    os.makedirs(MATCH_INPUTS, exist_ok=True)
+    torch.save({"gt": boxes.cpu(), "num_gt": num.cpu(), "priors": tpriors.cpu()},
+               os.path.join(MATCH_INPUTS, f"{name}_B{boxes.shape[0]}_G{boxes.shape[1]}"
+                                          f"_P{tpriors.shape[0]}.pt"))
     got = match_kernel.greedy_match_cuda(boxes, num, tpriors)
     torch.cuda.synchronize()
     if not torch.equal(got, match_kernel.greedy_match_plain(boxes, num, tpriors)):
         raise AssertionError(f"match[{name}]: differs from the plain version on the step's boxes")
-    B, G = boxes.shape[:2]
-    P = tpriors.shape[0]
-    n = num.cpu().numpy()
-    ms = time_ms(lambda: match_kernel.greedy_match_cuda(boxes, num, tpriors))
-    bound_ms, bound_by = bound(B * G * 16 + B * 4 + P * 16 + B * G * 4, match_work(n, G, P),
-                               "float32")
-    scratch = kernels.load_library().mbx_greedy_match_scratch_floats(G, P) > 0
-    return {"shape": f"B={B} G={G} P={P}", "route": "global scratch" if scratch else "shared",
-            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms, "library_ms": None,
-            "plain_ms": time_ms(lambda: match_kernel.greedy_match_plain(boxes, num, tpriors),
-                                reps=5, warmup=1),
-            "rounds_run": int(np.minimum(n, P).sum()),
-            "rounds_slowest_image": int(np.minimum(n, P).max())}
+    return match_timed(boxes, num, tpriors)
 
 
 def timed_steps(step_fn, state, data):
@@ -3078,8 +3121,8 @@ def phase_ssd(rng, gen, card_line, records, train_steps=6, overfit_steps=12):
     head over Mixed_5d / Mixed_6e / Mixed_7c (35², 17², 8²), 6 priors a
     cell from ``cli.priors --mode multiscale`` (P = 9,468), batch 32, G =
     16, dense matching at 0.5, center/log-scale encoding, bf16 backbone,
-    f32 head. Train with use_pallas=True (greedy matching on B4's global
-    scratch route), overfit one batch, detect as shipped (B1 at P =
+    f32 head. Train with use_pallas=True (greedy matching on B4, an
+    image's priors split over a cluster), overfit one batch, detect as shipped (B1 at P =
     9,468), the same model at 20 classes (train, then the per-class sweep
     into B1 at P = 1,024), and ``cli.train.main`` as shipped for 2 steps.
     Returns the launch counts of the phase and its kernel rows."""
@@ -3803,11 +3846,11 @@ def main() -> int:
     t0 = time.perf_counter()
     path, log = kernels.build_library(ptxas_verbose=True)
     kernels.load_library()
-    sass_b2, sass_b1 = sass_counts(path)
+    sass_b2, sass_b1, sass_b4 = sass_counts(path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path),
           "ptxas": [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln],
-          "sass_b2_wgmma": sass_b2, "sass_b1": sass_b1})
+          "sass_b2_wgmma": sass_b2, "sass_b1": sass_b1, "sass_b4": sass_b4})
 
     rng = np.random.default_rng(SEED)
     entries = [check_nms(rng), check_fused_matmul(rng), *check_boxes(rng), check_match(rng)]
@@ -3866,7 +3909,7 @@ def main() -> int:
                           mobilenet_p128_b64=mobilenet_rows["nms_mobilenet"],
                           ssd_flip_tta_p18936_b32=serve_rows["nms_ssd_flip_tta"],
                           coco_dp_p1024_c80=coco_rows["nms_coco_dp"])
-    by_name["match"].update(ssd_global_scratch=ssd_rows["match_ssd"],
+    by_name["match"].update(ssd_step_boxes=ssd_rows["match_ssd"],
                             mobilenet_p128=mobilenet_rows["match_mobilenet"])
     by_name["fused_matmul"]["mobilenet_head"] = mobilenet_rows["fused_matmul_mobilenet"]
     by_name["fused_matmul"]["coco_dp_head"] = coco_rows["fused_matmul_coco_dp"]

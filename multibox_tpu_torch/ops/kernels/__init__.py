@@ -187,10 +187,14 @@ def load_library():
         # (x, w, b, out, workspace, M, K, N, relu, is_bf16, route, split,
         #  kslice, tile_n, blocks, stages, resident, stream)
         lib.mbx_fused_matmul.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
-        # (gt, num_gt, priors, out, scratch, B, G, P, stream)
-        lib.mbx_greedy_match.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.mbx_greedy_match_scratch_floats.argtypes = [i, i]
-        lib.mbx_greedy_match_scratch_floats.restype = ll
+        # (gt, num_gt, priors, out, B, G, P, cluster, images, tile, stream)
+        lib.mbx_greedy_match.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        # (G, P, cluster, images, tile) -> shared bytes, 0 for a refused plan
+        lib.mbx_greedy_match_smem.argtypes = [i] * 5
+        lib.mbx_greedy_match_smem.restype = ll
+        # (G, P, cluster, tile) -> clusters the card holds at once
+        lib.mbx_greedy_match_clusters.argtypes = [i] * 4
+        lib.mbx_greedy_match_clusters.restype = i
         for fn in (lib.mbx_box_decode, lib.mbx_box_encode, lib.mbx_nms,
                    lib.mbx_fused_matmul, lib.mbx_greedy_match):
             fn.restype = i

@@ -21,7 +21,13 @@ the kernels cannot run.
 - B4's rounds (each row's running best, a rescan only for rows whose best
   column was just taken), written here in numpy, give exactly the
   assignments of the plain version and of the JAX package's
-  ``greedy_match``, on tie-heavy cases drawn by hypothesis.
+  ``greedy_match``, on tie-heavy cases drawn by hypothesis. So does the
+  redesigned kernel's algorithm (``match_kernel.list_rounds_emulation``:
+  each row's first min(n, P) cells per part of its columns, the parts'
+  lists merged, head pointers moving past dead columns) over 1-8 ragged
+  slices and 1-8 images a block, against the Pallas kernel in interpret
+  mode too, on those cases and on all-equal IoUs; and ``match_plan`` fits
+  every path's shape in shared memory and the card's SMs.
 - B1's sorted scan (``nms_kernel.sorted_scan_emulation``: the kernel's keys
   with -0.0 made +0.0, the descending sort, the chunks tested against the
   kept list and against themselves, the in-order resolution, the cut at K)
@@ -51,6 +57,7 @@ import torch
 
 from multibox_tpu.ops import matching as jm
 from multibox_tpu.ops.nms import _nms_jnp
+from multibox_tpu.ops.pallas.match_kernel import greedy_match_pallas_batched
 from multibox_tpu.ops.pallas.nms_kernel import nms_pallas_batched
 from multibox_tpu.ops.pallas.fused_matmul import (
     fused_matmul_bias_relu as fused_matmul_pallas,
@@ -462,6 +469,134 @@ def test_running_bests_on_duplicates_rescan_and_agree():
     pri = np.sort(rng.uniform(0, 1, (16, 2, 2)), axis=1).reshape(16, 4).astype(np.float32)
     pri[5] = pri[9]
     assert check_world(gt, np.asarray([10, 7], np.int32), pri) > 0
+
+
+# ------------------------------------------ B4: candidate lists and head pointers
+
+_pallas_greedy = functools.partial(greedy_match_pallas_batched, interpret=True)
+
+# (cluster, images a block) of the kernel's decompositions: a cluster of 1,
+# 2, 3, 4, 8 blocks an image, and 2 or 8 images sharing a block's warps
+LIST_PLANS = ((1, 1), (2, 1), (3, 1), (4, 1), (8, 1), (1, 2), (1, 8))
+
+
+def check_lists(gt, num, pri, chunk, pallas=True):
+    """csrc/match.cu's algorithm (``match_kernel.list_rounds_emulation``) on
+    every decomposition of LIST_PLANS, exactly the plain version, the vmapped
+    JAX ``greedy_match`` and (``pallas``) the Pallas kernel in interpret
+    mode. Returns the head pointers' advances."""
+    tg, tn, tp = torch.from_numpy(gt), torch.from_numpy(num), torch.from_numpy(pri)
+    plain = match_kernel.greedy_match_plain(tg, tn, tp).numpy()
+    np.testing.assert_array_equal(
+        plain, np.asarray(_jax_greedy(jnp.asarray(gt), jnp.asarray(num), jnp.asarray(pri))))
+    if pallas:
+        np.testing.assert_array_equal(plain, np.asarray(_pallas_greedy(
+            jnp.asarray(gt), jnp.asarray(num), jnp.asarray(pri))))
+    advances = 0
+    for cluster, images in LIST_PLANS:
+        plan = match_kernel.MatchPlan(cluster, images, 32, 0)
+        got, work = match_kernel.list_rounds_emulation(gt, num, pri, plan, chunk)
+        np.testing.assert_array_equal(got, plain, err_msg=f"{plan} chunk {chunk}")
+        assert work.rounds == int(np.minimum(np.clip(num, 0, gt.shape[1]), len(pri)).sum())
+        assert (work.rounds > 0) <= work.batches <= work.rounds
+        advances += work.advances
+    return advances
+
+
+@settings(max_examples=12, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(tie_heavy_worlds(), st.sampled_from([1, 2, 32]))
+@example((np.zeros((3, 8, 4), np.float32), np.asarray([0, 8, 3], np.int32),
+          np.zeros((5, 4), np.float32)), 1)  # all-zero IoU, num_gt 0, G > P
+def test_candidate_lists_give_the_greedy_assignments(world, chunk):
+    # chunks of 1 and 2 columns cut these few priors into ragged slices of
+    # up to 8 blocks; 32 is the kernel's own chunk
+    check_lists(*world, chunk)
+
+
+@pytest.mark.parametrize("P", [100, 300])
+def test_candidate_lists_over_ragged_slices_of_32_column_chunks(P):
+    # the kernel's own chunks: P = 100 over 2 blocks is 64 + 36 columns, P =
+    # 300 over 8 is 64, 64, 64, 64, 44 and three empty blocks
+    rng = np.random.default_rng(P)
+    gt = np.round(random_nms_boxes(rng, 3, 20) * 8) / 8  # grid boxes: equal IoUs
+    pri = np.round(random_nms_boxes(rng, 1, P)[0] * 8) / 8
+    gt[0, 3] = gt[0, 1]
+    pri[7] = pri[40]
+    num = np.asarray([20, 5, 0], np.int32)
+    check_lists(gt.astype(np.float32), num, pri.astype(np.float32), 32, pallas=False)
+
+
+def test_candidate_lists_on_all_equal_ious():
+    # every prior the same box: a row's cells tie everywhere, so its list is
+    # its first L columns, every round takes the lowest live column and every
+    # other live row's head moves on
+    rng = np.random.default_rng(11)
+    gt = random_nms_boxes(rng, 2, 12)
+    pri = np.repeat(random_nms_boxes(rng, 1, 1)[0], 40, axis=0)
+    num = np.asarray([12, 7], np.int32)
+    assert check_lists(gt, num, pri, 2) > 0
+    got, work = match_kernel.list_rounds_emulation(
+        gt, num, pri, match_kernel.MatchPlan(1, 1, 32, 0))
+    assert sorted(got[0]) == list(range(12)) and sorted(got[1][:7]) == list(range(7))
+    # every head on the same column: a batch assigns one row
+    assert work.batches == work.rounds == 19
+
+
+# (B, G, P) of every path: the train slice and a rank's half of it, SSD at
+# 32 and at a rank's 16, MobileNet, coco_dp's widths, chip_smoke's cases
+PATH_SHAPES = ((32, 16, 256), (16, 16, 256), (32, 16, 9468), (16, 16, 9468), (64, 16, 128),
+               (8, 64, 512), (256, 64, 512), (2, 128, 9468), (4, 16, 40000), (4, 16, 1),
+               (3, 24, 10), (600, 16, 256), (1, 128, 40000), (4, 128, 9468))
+
+
+# clusters of 0-8 blocks an H100 of 132 SMs holds at once
+# (cudaOccupancyMaxActiveClusters on the card: its GPCs' SMs do not divide
+# by 4 or 8)
+H100_CLUSTERS = (132, 132, 66, 39, 30, 22, 17, 15, 15)
+
+
+@pytest.mark.parametrize("sms", [16, 66, 132])
+@pytest.mark.parametrize("real", [False, True])
+def test_match_plan_fits_the_card(sms, real):
+    clusters = (tuple(c * sms // 132 for c in H100_CLUSTERS) if real
+                else match_kernel.ideal_clusters(sms))
+    for B, G, P in PATH_SHAPES:
+        plan = match_kernel.match_plan(B, G, P, sms, clusters)
+        assert plan.smem == match_kernel.match_smem(G, P, plan.cluster, plan.images, plan.tile)
+        assert plan.smem <= match_kernel.SMEM_LIMIT < 227 * 1024, (B, G, P, plan)
+        assert 1 <= plan.cluster <= 8 and plan.images in (1, 2, 4, 8)
+        # a batch of clusters the card holds at once, one wave
+        assert plan.cluster == 1 or (plan.images == 1 and B <= clusters[plan.cluster]
+                                     and B * plan.cluster <= sms)
+        assert 32 <= plan.tile <= match_kernel.MAX_TILE and plan.tile % 32 == 0
+        # every block of a cluster fills a slice of at least its minimum,
+        # and no larger cluster would both fit and keep it
+        sl = match_kernel.slice_cols(P, plan.cluster)
+        least = match_kernel.CLUSTER_MIN_COLS if G <= 32 else match_kernel.CLUSTER_MIN_COLS_LONG
+        assert plan.cluster == 1 or sl >= least
+        assert not any(B <= clusters[c] and match_kernel.slice_cols(P, c) >= least
+                       for c in range(plan.cluster + 1, 9))
+        if plan.images > 1:
+            assert -(-B // (plan.images // 2)) > 2 * sms
+
+
+def test_match_plan_on_an_h100():
+    plan = functools.partial(match_kernel.match_plan, sms=132, clusters=H100_CLUSTERS)
+    assert plan(32, 16, 256).cluster == 1 and plan(64, 16, 128).cluster == 1
+    # SSD: 32 clusters of 4 would take two waves (30 fit), 16 of 8 too (15)
+    assert plan(32, 16, 9468).cluster == 3 and plan(16, 16, 9468).cluster == 6
+    assert plan(8, 16, 1024).cluster == 4  # slices of 256 columns
+    assert plan(8, 64, 512).cluster == 8 and plan(2, 128, 9468).cluster == 8
+    assert plan(600, 16, 256).images > 1  # past two blocks an SM: packed
+    big = plan(1, 128, 40000)  # the largest lists beside many prior tiles
+    assert big.cluster == 8 and -(-match_kernel.slice_cols(40000, 8) // big.tile) > 1
+    assert big.smem <= match_kernel.SMEM_LIMIT
+    # on a card that held any SMs as a cluster, 4 and 8
+    ideal = functools.partial(match_kernel.match_plan, sms=132)
+    assert ideal(32, 16, 9468).cluster == 4 and ideal(16, 16, 9468).cluster == 8
+    with pytest.raises(ValueError, match="at most 128"):
+        plan(2, 129, 256)
 
 
 # ------------------------------------------------------- B1: the sorted scan
