@@ -21,6 +21,15 @@ read just after) and that what comes out is right, stage by stage:
   head through the matmul kernel forward and backward, RMSProp, EMA,
   augmentation), 12 steps, then resumed from its checkpoint to 16; one
   batch overfitted for 40 steps; stage times of a step;
+- graphs: the CUDA-graph steps (``multibox_tpu_torch.graphs``) against the
+  eager path: configs/cub_detect.yaml with use_pallas=True through
+  ``run_detect_loop`` at steps_per_host_transfer K = 1 and 4 over 9
+  batches, and its int8 program at K = 1; configs/voc_train.yaml with
+  greedy matching and use_pallas=True through ``train_from_batches`` for
+  12 steps at K = 1 and 4; ms a batch and a step of each path. Since this
+  phase every ``run_detect_loop`` and one-process ``train_from_batches``
+  of the script runs graphed unless its rule keeps it eager (Hungarian
+  matching, a data-parallel step over several ranks);
 - data: the data-to-training path at configs/voc_train.yaml's width, host
   code around one kernel: 64 JPEG files at VOC's sizes and a COCO file of
   their boxes from the seed → ``cli.dataset.main`` (JPEG records; raw
@@ -171,6 +180,10 @@ step 2's tolerance under half of what a halved gradient does; the resumed
 detect's and the torchrun CLI's results: the same image ids, counts exact,
 boxes and scores within 1e-4; metrics.jsonl once a step, the output file
 written by rank 0 alone.
+Phase graphs: the packed detections of every batch, and the train
+states (params, EMA, optimizer state, BatchNorm statistics), bit-equal to
+the eager path's; launch counts a batch and a step equal to the eager
+path's; one graph launch and one input copy a group.
 Phase data: records equal to their annotations (boxes within 1e-6, the
 COCO file's float64 pixels back to float32), the two readers' records
 byte-equal, the native JPEG decode within a mean absolute difference of
@@ -1105,16 +1118,16 @@ def stage_times(cfg, model, variables, priors, images_u8):
         }
 
 
-def profile_detect(cfg, variables, data, priors, fns):
-    """One detect loop under torch.profiler. From the device's own events
-    (kernels and copies): the share of the window between the first and the
-    last of them in which nothing ran, and the kernels that took most time."""
+def device_profile(fn):
+    """``fn()`` under torch.profiler. From the device's own events (kernels
+    and copies): the share of the window between the first and the last of
+    them in which nothing ran, and the kernels that took most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        inference.run_detect_loop(cfg, variables, data, priors, fns=fns, device=DEV)
+        fn()
         torch.cuda.synchronize()
     events = sorted(
         ((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -1131,11 +1144,17 @@ def profile_detect(cfg, variables, data, priors, fns):
         by_name[name] = (total + end - start, calls + 1)
     window_us = covered_to - events[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "batches": len(data),
-          "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / window_us,
-          "device_events": len(events),
-          "top": [{"name": k[:70], "ms": v[0] / 1e3, "calls": v[1]} for k, v in top]})
+    return {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / window_us,
+            "device_events": len(events),
+            "top": [{"name": k[:70], "ms": v[0] / 1e3, "calls": v[1]} for k, v in top]}
+
+
+def profile_detect(cfg, variables, data, priors, fns):
+    """One detect loop under torch.profiler (:func:`device_profile`)."""
+    emit({"phase": "profile", "batches": len(data), **device_profile(
+        lambda: inference.run_detect_loop(cfg, variables, data, priors, fns=fns,
+                                          device=DEV))})
 
 
 def phase_detect(rng, gen, card_line, profile_it=False):
@@ -1269,9 +1288,6 @@ def phase_detect_b128(rng, variables, priors, batches=2):
     stages = head_against_plain(cfg, model, variables, priors, data[0]["images"])
     runs = {}
     for name, run_cfg in (("kernels", cfg), ("plain", plain_cfg)):
-        fns = inference.make_detect_loop_fns(run_cfg, priors, device=DEV)
-        inference.run_detect_loop(run_cfg, variables, data[:1], priors, fns=fns, device=DEV)
-        torch.cuda.synchronize()
         seen, plan_of = {}, fused_matmul._plan
 
         def spy(M, K, N, dtype, aligned=True):
@@ -1279,8 +1295,14 @@ def phase_detect_b128(rng, variables, priors, batches=2):
             seen[f"{M}x{K}x{N}"] = plan.route
             return plan
 
+        # the plans are made where the detect graph is captured: in the
+        # first loop over these fns
         fused_matmul._plan = spy
         try:
+            fns = inference.make_detect_loop_fns(run_cfg, priors, device=DEV)
+            inference.run_detect_loop(run_cfg, variables, data[:1], priors, fns=fns,
+                                      device=DEV)
+            torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             results = inference.run_detect_loop(run_cfg, variables, data, priors, fns=fns,
@@ -1440,32 +1462,15 @@ def train_stage_times(cfg, model, state, priors, batch, reps=5):
 
 
 def profile_train(step_fn, state, data):
-    """Steps under torch.profiler: the device's idle share over the window
-    from its first to its last event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Steps under torch.profiler (:func:`device_profile`)."""
+    box = [state]
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def steps():
         for b in data:
-            state, _ = step_fn(state, b)
-        torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    if not events:
-        raise AssertionError("the profiler recorded no device event")
-    busy, covered, by_name = 0.0, events[0][0], {}
-    for start, end, name in events:
-        if end > covered:
-            busy += end - max(start, covered)
-            covered = end
-        total, calls = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + end - start, calls + 1)
-    window = covered - events[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return state, {"steps": len(data), "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-                   "device_idle_share": 1.0 - busy / window, "device_events": len(events),
-                   "top": [{"name": k[:70], "ms": v[0] / 1e3, "calls": v[1]} for k, v in top]}
+            box[0], _ = step_fn(box[0], b)
+
+    prof = device_profile(steps)
+    return box[0], {"steps": len(data), **prof}
 
 
 def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=40):
@@ -1540,6 +1545,251 @@ def phase_train(rng, card_line, profile_it=False, loop_steps=12, overfit_steps=4
         "overfit_loss_last": overfit[-1]})
     emit(out)
     return counts
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs against the eager path
+# --------------------------------------------------------------------------
+
+
+def state_gaps(a, b):
+    """``{leaf: max |a − b|}`` of the leaves of two train states that are
+    not equal bit for bit (an empty dict: the states are the same)."""
+    gaps = {}
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                gaps[path] = "different keys"
+            for k in x:
+                if k in y:
+                    walk(x[k], y[k], f"{path}.{k}" if path else k)
+        elif isinstance(x, torch.Tensor):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                gaps[path] = "different shape or dtype"
+            elif not torch.equal(x.detach().view(-1).view(torch.uint8),
+                                 y.detach().view(-1).view(torch.uint8)):
+                gaps[path] = float((x.detach().double() - y.detach().double()).abs().max())
+        elif x != y:
+            gaps[path] = f"{x} != {y}"
+
+    walk({"step": a.step, "params": a.params, "batch_stats": a.batch_stats,
+          "opt_state": a.opt_state, "ema_params": a.ema_params},
+         {"step": b.step, "params": b.params, "batch_stats": b.batch_stats,
+          "opt_state": b.opt_state, "ema_params": b.ema_params}, "")
+    return gaps
+
+
+@contextlib.contextmanager
+def graph_calls():
+    """Within the block, counts of CUDA graph replays and of staged input
+    copies (``graphs.CapturedGraph.replay``, ``graphs.StagedInputs.put``)."""
+    from multibox_tpu_torch import graphs
+
+    calls = {"replays": 0, "input_copies": 0}
+    replay, put = graphs.CapturedGraph.replay, graphs.StagedInputs.put
+
+    def counted_replay(self):
+        calls["replays"] += 1
+        return replay(self)
+
+    def counted_put(self, fields):
+        calls["input_copies"] += 1
+        return put(self, fields)
+
+    graphs.CapturedGraph.replay, graphs.StagedInputs.put = counted_replay, counted_put
+    try:
+        yield calls
+    finally:
+        graphs.CapturedGraph.replay, graphs.StagedInputs.put = replay, put
+
+
+@contextlib.contextmanager
+def packed_results():
+    """Within the block, a copy of every packed ``[B, D, 7]`` detection
+    array the detect loop unpacks."""
+    seen, real = [], inference._unpack_dets
+
+    def spy(arr):
+        seen.append(np.array(arr, copy=True))
+        return real(arr)
+
+    inference._unpack_dets = spy
+    try:
+        yield seen
+    finally:
+        inference._unpack_dets = real
+
+
+def phase_graphs(rng, gen, card_line, profile_it=False, batches=9, steps=12):
+    """CUDA graphs (``multibox_tpu_torch.graphs``) against the eager path.
+    Detect: configs/cub_detect.yaml with use_pallas=True (Inception-v3
+    299, P = 256, batch 32, bf16 backbone), ``run_detect_loop`` at
+    steps_per_host_transfer K = 1 and 4 over 9 batches (at K = 4 two full
+    groups and one batch alone, the last batch 20 images of 32): the packed
+    detections of every batch bit-equal, the launch counts a batch those of
+    the eager path, one graph launch and one input copy a group; ms a batch
+    of each path. Train: configs/voc_train.yaml with greedy matching and
+    use_pallas=True, ``train_from_batches`` for 12 steps from one start
+    state at K = 1 and 4, each path: params, EMA, optimizer state and
+    BatchNorm statistics bit-equal, launch counts a step the eager path's,
+    one graph launch a group; ms a step of each path."""
+    from multibox_tpu_torch import graphs
+    from multibox_tpu_torch.config import parse_config_file
+
+    out = {"phase": "graphs", "card": card_line}
+    total = {}
+    cfg = dataclasses.replace(parse_config_file("configs/cub_detect.yaml"), use_pallas=True)
+    P, B = cfg.num_priors, cfg.batch_size
+    priors = np.sort(rng.uniform(0.05, 0.95, (P, 2, 2)).astype(np.float32), axis=1).reshape(P, 4)
+    variables = make_variables(inference.build_model(cfg, P, device=DEV), gen)
+    data = make_dataset(rng, batches=batches, batch=B, valid_last=20)
+    images = sum(int(b["batch_valid"]) for b in data)
+    per_batch = {"nms": 1, "fused_matmul": 3, "box_decode": 1}
+    detect = {}
+    for K in (1, 4):
+        kcfg = dataclasses.replace(cfg, steps_per_host_transfer=K)
+        packed = {}
+        for path in ("eager", "graphs"):
+            fns = inference.make_detect_loop_fns(kcfg, priors, device=DEV, eager=path == "eager")
+            graphed = isinstance(fns["groups"], inference._GraphedGroups)
+            if graphed != (path == "graphs"):
+                raise AssertionError(f"graphs: detect took the wrong path ({path})")
+            t0 = time.perf_counter()
+            inference.run_detect_loop(kcfg, variables, data, priors, fns=fns, device=DEV)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0  # the graphs' capture included
+            with packed_results() as seen, graph_calls() as calls:
+                t0 = time.perf_counter()
+                results, counts = counted(lambda: inference.run_detect_loop(
+                    kcfg, variables, data, priors, fns=fns, device=DEV),
+                    {k: v * batches for k, v in per_batch.items()},
+                    f"graphs: detect ({path}, K={K})")
+                seconds = time.perf_counter() - t0
+            add_counts(total, counts)
+            check_results(results, images, cfg.max_detections)
+            full = batches // K
+            want_calls = {"replays": full + (batches - full * K), "input_copies":
+                          full + (batches - full * K)} if graphed else {"replays": 0,
+                                                                        "input_copies": 0}
+            if calls != want_calls:
+                raise AssertionError(f"graphs: detect ({path}, K={K}) made {calls}, "
+                                     f"expected {want_calls}")
+            packed[path] = np.stack(seen)
+            row = {"ms_per_batch": seconds * 1e3 / batches, "first_loop_s": first_s,
+                   "groups": -(-batches // K), **calls}
+            if profile_it:
+                row["profile"] = device_profile(lambda: inference.run_detect_loop(
+                    kcfg, variables, data, priors, fns=fns, device=DEV))
+            detect[f"K{K}_{path}"] = row
+            del fns
+        if packed["eager"].shape != (batches, B, cfg.max_detections, 7) or \
+                packed["eager"].tobytes() != packed["graphs"].tobytes():
+            raise AssertionError(f"graphs: detect K={K}: packed detections differ from eager")
+        detect[f"K{K}_bit_equal"] = True
+    # the int8 program (quantize: int8, calibrated on one batch), K = 1
+    from multibox_tpu_torch.quantize import prepare_quantized_variables
+
+    qcfg = dataclasses.replace(cfg, quantize="int8")
+    qvars = prepare_quantized_variables(qcfg, variables, [data[0]["images"]], device=DEV)
+    qdata = data[:3]
+    packed = {}
+    for path in ("eager", "graphs"):
+        fns = inference.make_detect_loop_fns(qcfg, priors, device=DEV, eager=path == "eager")
+        inference.run_detect_loop(qcfg, qvars, qdata, priors, fns=fns, device=DEV)
+        with packed_results() as seen:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            inference.run_detect_loop(qcfg, qvars, qdata, priors, fns=fns, device=DEV)
+            torch.cuda.synchronize()
+            detect[f"int8_{path}"] = {"ms_per_batch": (time.perf_counter() - t0) * 1e3
+                                      / len(qdata), "launches": kernels.launch_counts()}
+            add_counts(total, detect[f"int8_{path}"]["launches"])
+        packed[path] = np.stack(seen)
+        del fns
+    if detect["int8_eager"]["launches"] != detect["int8_graphs"]["launches"] or \
+            detect["int8_eager"]["launches"]["nms"] != len(qdata):
+        raise AssertionError(f"graphs: int8 detect launches {detect['int8_eager']['launches']}"
+                             f" (eager) and {detect['int8_graphs']['launches']} (graphs)")
+    if packed["eager"].tobytes() != packed["graphs"].tobytes():
+        raise AssertionError("graphs: int8 detect: packed detections differ from eager")
+    detect["int8_bit_equal"] = True
+    out["detect"] = detect
+    del variables, qvars
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(parse_config_file("configs/voc_train.yaml"), matching="greedy",
+                               use_pallas=True, log_every_steps=steps, keep_checkpoints=1)
+    P = tcfg.num_priors
+    tpriors = np.sort(rng.uniform(0.05, 0.95, (P, 2, 2)).astype(np.float32),
+                      axis=1).reshape(P, 4)
+    tdata = make_train_data(rng, steps, tcfg, int(tcfg.input_size * 1.15))
+    stream = lambda start: iter(tdata[start:])  # noqa: E731
+    want = {"match": steps, "fused_matmul": 3 * steps, "fused_matmul_backward": 3 * steps,
+            "box_encode": steps}
+    train = {}
+    root = os.path.join(".work", "chip_smoke_graphs")
+    for K in (1, 4):
+        kcfg = dataclasses.replace(tcfg, steps_per_host_transfer=K)
+        final = {}
+        for path in ("eager", "graphs"):
+            logdir = os.path.join(root, f"K{K}_{path}")
+            shutil.rmtree(logdir, ignore_errors=True)
+            with graph_calls() as calls:
+                t0 = time.perf_counter()
+                final[path], counts = counted(lambda: train_loop.train_from_batches(
+                    kcfg, stream, tpriors, logdir, max_steps=steps, device=DEV,
+                    eager=path == "eager"), want, f"graphs: train ({path}, K={K})")
+                seconds = time.perf_counter() - t0
+            add_counts(total, counts)
+            shutil.rmtree(logdir, ignore_errors=True)
+            want_replays = steps // K if path == "graphs" else 0
+            if calls["replays"] != want_replays:
+                raise AssertionError(f"graphs: train ({path}, K={K}): {calls['replays']} "
+                                     f"graph launches, expected {want_replays}")
+            train[f"K{K}_{path}"] = {"loop_seconds": seconds, **calls}
+        gaps = state_gaps(final["eager"], final["graphs"])
+        train[f"K{K}_bit_equal"] = not gaps
+        if gaps:
+            train[f"K{K}_gaps"] = dict(list(gaps.items())[:20])
+            raise AssertionError(f"graphs: train K={K}: the graphed state differs from the "
+                                 f"eager one at {len(gaps)} leaves: {dict(list(gaps.items())[:5])}")
+        del final
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ms a step on the host clock, from one start state: eager, then one-step
+    # graphs, then graphs of four steps
+    model = inference.build_model(tcfg, P, device=DEV)
+    state = train_state.create_train_state(tcfg, model, SEED, P, device=DEV)
+    step_fn = train_loop.make_augmented_train_step(tcfg, model, tpriors, device=DEV)
+    ms = {"eager": timed_steps(step_fn, state, tdata[:6])[0]}
+    one = train_loop.GraphedTrainStep(step_fn)
+    ms["graphs_K1"], st1 = timed_steps(lambda s, b: one(s, [b]), state, tdata[:6])
+    four = train_loop.GraphedTrainStep(step_fn)
+    st4 = state.clone()
+    four(st4, tdata[:4])  # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(1, steps // 4):
+        four(st4, tdata[4 * g:4 * g + 4])
+    torch.cuda.synchronize()
+    ms["graphs_K4"] = (time.perf_counter() - t0) * 1e3 / (steps - 4)
+    train["ms_per_step"] = ms
+    if profile_it:
+        st = state.clone()
+        train["profile_eager"] = profile_train(step_fn, st, tdata[:3])[1]
+        train["profile_graphs_K1"] = profile_train(lambda s, b: one(s, [b]), st1, tdata[:3])[1]
+        train["profile_graphs_K4"] = device_profile(lambda: four(st4, tdata[:4]))
+    del state, st1, st4, one, four, step_fn, model
+    torch.cuda.empty_cache()
+    out.update({"ok": True, "train": train, "launches": total,
+                "config": "detect: configs/cub_detect.yaml + use_pallas (inception_v3 299, "
+                          "P=256, batch 32, K=10 detections); train: configs/voc_train.yaml + "
+                          "greedy matching + use_pallas (batch 32, G=16, RMSProp, EMA, "
+                          "augmentation)"})
+    emit(out)
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -3011,7 +3261,9 @@ def nms_inputs_seen():
     """Within the block, each ``nms_kernel.nms_select`` call of the path
     (``ops.nms.batched_nms`` calls it through the module) also records a
     copy of its boxes and scores and its arguments, so B1 can be held
-    against its plain version at exactly the inputs the path gave it."""
+    against its plain version at exactly the inputs the path gave it. A
+    graphed detect loop calls the wrapper where its graph is made: the
+    first entry is the eager warm-up's, the path's first batch."""
     seen, real = [], nms_kernel.nms_select
 
     def spy(boxes, scores, *args):
@@ -3194,9 +3446,9 @@ def phase_ssd(rng, gen, card_line, records, train_steps=6, overfit_steps=12):
     variables = make_variables(model, gen)
     ddata = make_dataset(rng, batches=3, batch=B, valid_last=B)
     fns = inference.make_detect_loop_fns(dcfg, priors, device=DEV)
-    inference.run_detect_loop(dcfg, variables, ddata[:1], priors, fns=fns, device=DEV)
-    t0 = time.perf_counter()
     with nms_inputs_seen() as seen:
+        inference.run_detect_loop(dcfg, variables, ddata[:1], priors, fns=fns, device=DEV)
+        t0 = time.perf_counter()
         results, counts = counted(lambda: inference.run_detect_loop(
             dcfg, variables, ddata, priors, fns=fns, device=DEV), {"nms": len(ddata)},
             "ssd detect")
@@ -3306,9 +3558,9 @@ def phase_mobilenet(rng, gen, card_line, train_steps=6):
     for tag, c, want in (("shipped", shipped, {"nms": 1}),
                          ("use_pallas", kcfg, {"nms": 1, "fused_matmul": 3, "box_decode": 1})):
         fns = inference.make_detect_loop_fns(c, priors, device=DEV)
-        inference.run_detect_loop(c, variables, data[:1], priors, fns=fns, device=DEV)
-        t0 = time.perf_counter()
         with nms_inputs_seen() as seen:
+            inference.run_detect_loop(c, variables, data[:1], priors, fns=fns, device=DEV)
+            t0 = time.perf_counter()
             results, counts = counted(lambda: inference.run_detect_loop(
                 c, variables, data, priors, fns=fns, device=DEV),
                 {k: v * len(data) for k, v in want.items()}, f"mobilenet detect ({tag})")
@@ -3804,9 +4056,9 @@ def phase_serve(rng, gen, card_line):
     svars = make_variables(smodel, gen)
     sdata = make_dataset(rng, batches=2, batch=tcfg.batch_size, valid_last=tcfg.batch_size)
     fns = inference.make_detect_loop_fns(tcfg, ssd_priors, device=DEV)
-    inference.run_detect_loop(tcfg, svars, sdata[:1], ssd_priors, fns=fns, device=DEV)
-    t0 = time.perf_counter()
     with nms_inputs_seen() as seen:
+        inference.run_detect_loop(tcfg, svars, sdata[:1], ssd_priors, fns=fns, device=DEV)
+        t0 = time.perf_counter()
         results, counts = counted(lambda: inference.run_detect_loop(
             tcfg, svars, sdata, ssd_priors, fns=fns, device=DEV), {"nms": len(sdata)},
             "ssd flip-TTA detect")
@@ -3826,6 +4078,29 @@ def phase_serve(rng, gen, card_line):
     return total, {"nms_ssd_flip_tta": row}
 
 
+def only_phases(names, profile_it) -> int:
+    """Some phases alone (a quick check while working on one of them)."""
+    phases = {"detect": lambda: phase_detect(np.random.default_rng(SEED),
+                                             torch.Generator().manual_seed(SEED), card(),
+                                             profile_it),
+              "train": lambda: phase_train(np.random.default_rng(SEED), card(), profile_it),
+              "graphs": lambda: phase_graphs(np.random.default_rng(SEED + 13),
+                                             torch.Generator().manual_seed(SEED + 13), card(),
+                                             profile_it),
+              "mobilenet": lambda: phase_mobilenet(np.random.default_rng(SEED),
+                                                   torch.Generator().manual_seed(SEED), card())}
+    unknown = set(names) - set(phases)
+    if unknown:
+        raise SystemExit(f"--only: unknown phase(s) {sorted(unknown)}; choose from "
+                         f"{sorted(phases)}")
+    kernels.load_library()
+    for name in names:
+        t0 = time.perf_counter()
+        phases[name]()
+        emit({"phase": "timing", "only": name, "seconds": time.perf_counter() - t0})
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -3834,10 +4109,15 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run one detect loop under torch.profiler and "
                              "print the device's idle share and top kernels")
+    parser.add_argument("--only", default=None,
+                        help="run only these phases of detect, train, graphs, mobilenet "
+                             "(comma separated; no kernels phase and no result line)")
     parser.add_argument("--parallel_worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.parallel_worker:  # a rank spawned by phase parallel
         return parallel_worker(args.parallel_worker)
+    if args.only:
+        return only_phases(args.only.split(","), args.profile)
     t_start = time.perf_counter()
     card_line = card()
     emit({"phase": "device", "card": card_line, "torch": torch.__version__,
@@ -3876,6 +4156,8 @@ def main() -> int:
                         variables, priors)
     del variables
     train_counts = timed("train", phase_train, rng, card_line, args.profile)
+    graphs_counts = timed("graphs", phase_graphs, np.random.default_rng(SEED + 13),
+                          torch.Generator().manual_seed(SEED + 13), card_line, args.profile)
     sweep_counts = timed("batch_sweep", phase_batch_sweep, card_line)
     data_counts = timed("data", phase_data, rng, card_line)
     cli_counts, records = timed("cli", phase_cli, rng, card_line)
@@ -3891,14 +4173,16 @@ def main() -> int:
 
     contract_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches on the eleven paths: detect (B1, B2, B3a), detect at batch
-    # 128 (B1, B2, B3a), train (B2, B3b, B4),
+    # launches on the twelve paths: detect (B1, B2, B3a), detect at batch
+    # 128 (B1, B2, B3a), train (B2, B3b, B4), graphs (B1, B2, B3a in detect
+    # and int8 detect; B2, B3b, B4 in train; eager and graphed),
     # batch_sweep (none: use_pallas unset), data (B1 in visualize), cli
     # (B1), parallel (B2, B3b, B4 on every rank; B1, B2, B3a in the sharded
     # detect; B1 in the one-process detect CLI), coco_dp (B1 in the detect
     # CLI), ssd (B1, B4), mobilenet (B1, B2, B3a, B3b, B4) and serve (B1, B2,
     # B3a inside the exported programs; B1 with flip TTA)
-    paths = (counts, b128_counts, train_counts, sweep_counts, data_counts, cli_counts,
+    paths = (counts, b128_counts, train_counts, graphs_counts, sweep_counts, data_counts,
+             cli_counts,
              parallel_counts, coco_counts, ssd_counts, mobilenet_counts, serve_counts)
     for e in entries + [backward]:
         e["launches"] = sum(c.get(e["name"], 0) for c in paths)

@@ -114,10 +114,12 @@ class Config:
     # --- host input pipeline (see data/pipeline) ---
     decode_draft: bool = False  # libjpeg DCT-scaled decode for train inputs
     decode_cache_items: int = 0  # RAM-cache N decoded items across epochs
-    # Train steps per loop iteration: K > 1 stacks K host batches and runs
-    # them back to back in one call (train.loop.make_chunked_step), with the
-    # same result as K single steps. The JAX package groups them to amortize
-    # a link that charges per transfer; the detect loop here ignores it.
+    # Steps per host call, as in the JAX package: K > 1 stacks K host
+    # batches (train steps or detect batches), copies them to the device at
+    # once and runs the K steps with no wait for the device in between: on
+    # the card one CUDA graph of K steps (multibox_tpu_torch.graphs), else
+    # back to back (train.loop.make_chunked_step). The results are those of
+    # K single steps.
     steps_per_host_transfer: int = 1
 
     # NMS flavor: "hard" (reference semantics, CUDA kernel on the GPU) or

@@ -774,12 +774,21 @@ nms_window_kernel(const float4* __restrict__ boxes,  // [B, P]
 }
 
 // Past 48 KiB of shared memory a block, static arrays (up to 8 KiB here)
-// included, a launch needs the kernel's opt-in.
+// included, a launch needs the kernel's opt-in. It is set once a device for
+// the largest size asked so far (`granted`, per kernel), so that a launch
+// captured into a CUDA graph after a first one sets nothing.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+cudaError_t allow_smem(Kernel kernel, size_t smem, int* granted) {
   if (smem <= 40 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (granted[dev] >= static_cast<int>(smem)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) granted[dev] = static_cast<int>(smem);
+  return e;
 }
 
 }  // namespace
@@ -814,7 +823,8 @@ extern "C" int mbx_nms(const void* boxes, const void* scores, void* sel_idx, voi
   if (window == 0) {
     const size_t smem = full_smem_bytes(P, K);
     if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = allow_smem(nms_full_kernel, smem);
+    static int granted[64];
+    cudaError_t e = allow_smem(nms_full_kernel, smem, granted);
     if (e != cudaSuccess) return static_cast<int>(e);
     nms_full_kernel<<<B, kThreads, smem, st>>>(b4, sc, oi, os, P, K, thr, score_thr);
     return static_cast<int>(cudaGetLastError());
@@ -824,7 +834,8 @@ extern "C" int mbx_nms(const void* boxes, const void* scores, void* sel_idx, voi
   if (smem > kSmemLimit ||
       (staged && (static_cast<size_t>(slice) * 4 + kTileBytes - 1) / kTileBytes > kMaxTiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem(nms_window_kernel, smem);
+  static int granted[64];
+  cudaError_t e = allow_smem(nms_window_kernel, smem, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B) * cluster);

@@ -29,13 +29,20 @@ import torch
 from multibox_tpu_torch.ops import boxes as box_ops
 
 
+def _full_window(device) -> torch.Tensor:
+    """The whole image as a window, ``[0, 0, 1, 1]``, made on ``device``
+    (a copy from the host would wait for it, which a CUDA graph's capture
+    refuses)."""
+    return (torch.arange(4, device=device) // 2).to(torch.float32)
+
+
 def bilinear_resize(images: torch.Tensor, out_size: int) -> torch.Tensor:
     """Batched bilinear resize ``[B, H, W, C] → [B, S, S, C]`` (float32),
     matching TF's ``ResizeBilinear`` with ``half_pixel_centers=True``:
     output pixel i samples source coordinate ``(i + 0.5) / S · size − 0.5``.
     Rows first, then columns, in float32: :func:`crop_and_resize` over the
     full window."""
-    full = torch.tensor([[0.0, 0.0, 1.0, 1.0]], device=images.device)
+    full = _full_window(images.device)
     return crop_and_resize(images, full.expand(images.shape[0], 4), out_size)
 
 
@@ -198,8 +205,7 @@ def sample_crop_window(params: Dict[str, torch.Tensor], boxes: torch.Tensor,
     first = torch.where(ok, torch.arange(K, device=ok.device), K).min(-1).values
     picked = torch.gather(windows, 1, first.clamp_max(K - 1)[:, None, None]
                           .expand(-1, 1, 4))[:, 0]
-    full = torch.tensor([0.0, 0.0, 1.0, 1.0], device=boxes.device)
-    return torch.where(ok.any(-1)[:, None], picked, full)
+    return torch.where(ok.any(-1)[:, None], picked, _full_window(boxes.device))
 
 
 # ---------------------------------------------------------------------------
@@ -214,13 +220,24 @@ _RGB_TO_YIQ = np.array(
      [0.211, -0.523, 0.312]], np.float32
 )
 _YIQ_TO_RGB = np.linalg.inv(_RGB_TO_YIQ).astype(np.float32)
+# the two matrices on each device, copied there once: a copy from the host
+# inside a CUDA graph's capture would wait for it, which the capture refuses
+_YIQ_ON: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _yiq_matrices(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    mats = _YIQ_ON.get(device)
+    if mats is None:
+        mats = (torch.from_numpy(_RGB_TO_YIQ).to(device),
+                torch.from_numpy(_YIQ_TO_RGB).to(device))
+        _YIQ_ON[device] = mats
+    return mats
 
 
 def _rotate_hue(images: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """Rotate hue by a per-image angle ``theta [B]`` (radians); images
     ``[B, H, W, 3]``."""
-    to_yiq = torch.from_numpy(_RGB_TO_YIQ).to(images.device)
-    to_rgb = torch.from_numpy(_YIQ_TO_RGB).to(images.device)
+    to_yiq, to_rgb = _yiq_matrices(images.device)
     cos = torch.cos(theta)[:, None, None]
     sin = torch.sin(theta)[:, None, None]
     yiq = images @ to_yiq.T
@@ -303,7 +320,7 @@ def apply_augment(params: Dict, images: torch.Tensor, boxes: torch.Tensor,
             lvalid = torch.arange(labels.shape[1], device=labels.device) < num_boxes[:, None]
             labels = torch.where(lvalid, labels, torch.zeros_like(labels))
     else:
-        windows = torch.tensor([[0.0, 0.0, 1.0, 1.0]], device=images.device).expand(B, 4)
+        windows = _full_window(images.device).expand(B, 4)
     images = crop_and_resize(images, windows, cfg.input_size)
     if cfg.random_flip:
         flip = params["flip"]

@@ -11,19 +11,22 @@ one is used only when ``cfg.box_encoding == "ssd"``).
 
 Every entry point takes ``device=None``, which means the CUDA device and
 raises when there is none; pass ``device="cpu"`` to run on the CPU. The
-functions are eager PyTorch: ``make_detect_fn`` has nothing to compile and
-returns the same callable as ``make_detect_body``.
+detect functions are eager PyTorch: ``make_detect_fn`` has nothing to
+compile and returns the same callable as ``make_detect_body``. The detect
+loop (:func:`run_detect_loop`) runs on the card as CUDA graphs of
+``cfg.steps_per_host_transfer`` batches (``multibox_tpu_torch.graphs``).
 """
 
 from __future__ import annotations
 
 import logging
 from collections import Counter
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
+from multibox_tpu_torch import graphs
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.data.augment import preprocess_eval
 from multibox_tpu_torch.data.pipeline import Prefetcher
@@ -242,46 +245,58 @@ def make_detect_fn(cfg: Config, priors, use_ema: bool = None, device=None):
 
 def make_detect_body(cfg: Config, priors, use_ema: bool = None, device=None):
     """The detect step — single source of the EMA-selection and
-    postprocess semantics. Runs under ``torch.no_grad()`` on ``device``."""
+    postprocess semantics. Runs under ``torch.no_grad()`` on ``device``.
+    Returns ``detect(variables, images) -> detections`` (a
+    :class:`DetectBody`)."""
     if cfg.quantize not in ("none", "int8"):
         # A typo'd mode silently measuring the f32 arm would poison any
         # quantization A/B — fail loudly (same rationale as nms_mode).
         raise ValueError(
             f"unknown quantize mode: {cfg.quantize!r} (expected 'none' or 'int8')"
         )
-    device = resolve_device(device)
-    priors = torch.as_tensor(np.asarray(priors, np.float32)).to(device)
-    if cfg.quantize == "int8":
-        # Int8 PTQ: EMA selection, BN folding and weight quantization are
-        # already baked into the prepared variables
-        # (quantize.prepare_quantized_variables): apply them directly.
-        model_q = build_model(cfg, priors.shape[0], folded=True, quantize="int8",
-                              device=device)
+    return DetectBody(cfg, priors, use_ema=use_ema, device=device)
 
-        @torch.no_grad()
-        def detect_q(variables, images):
-            images = torch.as_tensor(images).to(device)
-            return apply_and_postprocess(
-                model_q, {"params": variables["params"], "quant": variables["quant"]},
-                images, priors, cfg)
 
-        return detect_q
-    model = build_model(cfg, priors.shape[0], device=device)
-    if use_ema is None:
-        use_ema = cfg.use_ema_for_detect
+class DetectBody:
+    """The detect step of :func:`make_detect_body`. Calling it is
+    ``apply(select(variables), images)``: :meth:`select` picks the
+    variables the model reads (EMA or raw params, BatchNorm statistics; the
+    prepared int8 variables as they are), :meth:`apply` runs the model and
+    the postprocess on a batch already on the device."""
 
-    @torch.no_grad()
-    def detect(variables, images):
+    def __init__(self, cfg: Config, priors, use_ema: bool = None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.priors = torch.as_tensor(np.asarray(priors, np.float32)).to(self.device)
+        self.quantized = cfg.quantize == "int8"
+        if self.quantized:
+            # Int8 PTQ: EMA selection, BN folding and weight quantization are
+            # already baked into the prepared variables
+            # (quantize.prepare_quantized_variables): apply them directly.
+            self.model = build_model(cfg, self.priors.shape[0], folded=True,
+                                     quantize="int8", device=self.device)
+        else:
+            self.model = build_model(cfg, self.priors.shape[0], device=self.device)
+        self.use_ema = cfg.use_ema_for_detect if use_ema is None else use_ema
+
+    def select(self, variables) -> Dict[str, Dict[str, torch.Tensor]]:
+        if self.quantized:
+            return {"params": variables["params"], "quant": variables["quant"]}
         params = variables["params"]
-        if use_ema and "ema" in variables:
+        if self.use_ema and "ema" in variables:
             params = variables["ema"]
         apply_vars = {"params": params}
         if "batch_stats" in variables:
             apply_vars["batch_stats"] = variables["batch_stats"]
-        images = torch.as_tensor(images).to(device)
-        return apply_and_postprocess(model, apply_vars, images, priors, cfg)
+        return apply_vars
 
-    return detect
+    @torch.no_grad()
+    def apply(self, apply_vars, images: torch.Tensor):
+        return apply_and_postprocess(self.model, apply_vars, images, self.priors, self.cfg)
+
+    @torch.no_grad()
+    def __call__(self, variables, images):
+        return self.apply(self.select(variables), torch.as_tensor(images).to(self.device))
 
 
 def _pack_dets(det):
@@ -306,27 +321,122 @@ def _unpack_dets(arr):
     return boxes, scores, classes, nums
 
 
-def make_detect_loop_fns(cfg: Config, priors, use_ema: bool = None, device=None):
+def make_detect_loop_fns(cfg: Config, priors, use_ema: bool = None, device=None,
+                         eager: bool = False):
     """Functions for :func:`run_detect_loop`, built once so repeated
-    invocations (periodic in-training eval) reuse them. ``per_batch``
+    invocations (periodic in-training eval) reuse them and, on the card,
+    their CUDA graphs. A group of ``cfg.steps_per_host_transfer`` batches
     takes uint8 images, preprocesses on the device and returns PACKED
-    detections (:func:`_pack_dets`)."""
+    detections (:func:`_pack_dets`), ``[K, B, max_detections, 7]``.
+    ``eager=True`` keeps the card on the eager path."""
     device = resolve_device(device)
     body = make_detect_body(cfg, priors, use_ema=use_ema, device=device)
-    if int(cfg.steps_per_host_transfer) > 1:
-        # Grouping batches per transfer changes no result; it exists for
-        # links that charge per transfer and is not carried over.
-        log.warning(
-            "steps_per_host_transfer=%s is ignored: batches are dispatched "
-            "one by one", cfg.steps_per_host_transfer,
-        )
+    why = graphs.eager_reason(device, eager)
+    chunk = max(1, int(cfg.steps_per_host_transfer))
+    if why is None:
+        log.info("detect: CUDA graphs, %d batch(es) a host call", chunk)
+    else:
+        log.info("detect: eager (%s)", why)
+    return {"device": device, "chunk": chunk,
+            "groups": (_EagerGroups if why else _GraphedGroups)(body, cfg.input_size)}
 
-    @torch.no_grad()
-    def one(variables, images):
-        images = torch.as_tensor(images).to(device)
-        return _pack_dets(body(variables, preprocess_eval(images, cfg.input_size)))
 
-    return {"per_batch": one, "device": device}
+def _packed(body: "DetectBody", apply_vars, images: torch.Tensor, input_size: int):
+    """One batch of uint8 images on the device → packed detections."""
+    with torch.no_grad():
+        return _pack_dets(body.apply(apply_vars, preprocess_eval(images, input_size)))
+
+
+class _EagerGroups:
+    """Groups of batches run eagerly: one copy of the stacked images to the
+    device, the batches one after another, one packed result back."""
+
+    def __init__(self, body: "DetectBody", input_size: int):
+        self.body, self.input_size = body, input_size
+        self.apply_vars = None
+
+    def load(self, variables) -> None:
+        self.apply_vars = self.body.select(variables)
+
+    def run(self, images: List[np.ndarray]) -> List["_Fetch"]:
+        stacked = torch.as_tensor(np.stack(images)).to(self.body.device)
+        return [_Fetch(torch.stack([
+            _packed(self.body, self.apply_vars, x, self.input_size) for x in stacked]))]
+
+
+def _tensor_leaves(tree, prefix=()):
+    """``[(path, tensor)]`` of a nested dict's tensors, in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(_tensor_leaves(v, prefix + (k,)))
+        elif isinstance(v, torch.Tensor):
+            out.append((prefix + (k,), v))
+    return out
+
+
+class _GraphedGroups:
+    """Groups of batches as CUDA graphs: one graph per (group length,
+    image layout), captured at its first use and reused by every later
+    :func:`run_detect_loop` call with these functions. A full group is one
+    copy of the stacked images from pinned memory, one graph launch and
+    one packed ``[K, B, D, 7]`` result back; a shorter last group runs as
+    one-batch graphs, as the JAX package's loop does.
+
+    Inside a graph the weights are read at fixed addresses (and B2's
+    tensor maps hold them), so the graphs read their own copy of the
+    variables, which :meth:`load` refreshes once a loop: EMA selection, a
+    restore and periodic eval on fresh tensors all see their own weights."""
+
+    def __init__(self, body: "DetectBody", input_size: int):
+        self.body, self.input_size = body, input_size
+        self.static = None  # the graphs' copy of the selected variables
+        self.layout = None
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def load(self, variables) -> None:
+        apply_vars = self.body.select(variables)
+        leaves = _tensor_leaves(apply_vars)
+        layout = [(path, tuple(t.shape), t.dtype) for path, t in leaves]
+        with torch.no_grad():
+            if layout != self.layout:
+                self.graphs.clear()
+                self.layout = layout
+                self.static = _clone_tree(apply_vars)
+            else:
+                torch._foreach_copy_([t for _, t in _tensor_leaves(self.static)],
+                                     [t for _, t in leaves])
+
+    def run(self, images: List[np.ndarray]) -> List["_Fetch"]:
+        key = (len(images),) + graphs.spec_of(images)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self._capture(images)
+            self.graphs[key] = entry
+        graph, staged = entry
+        staged.put({"images": images})
+        graph.replay()
+        return [_Fetch(graph.outputs)]
+
+    def _capture(self, images: List[np.ndarray]):
+        staged = graphs.StagedInputs({"images": graphs.spec_of(images)}, self.body.device)
+        staged.put({"images": images})
+        x = staged.views["images"]
+
+        def group():
+            return torch.stack([_packed(self.body, self.static, x[k], self.input_size)
+                                for k in range(len(images))])
+
+        return graphs.CapturedGraph(group, self.body.device), staged
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
 
 
 class _Fetch:
@@ -365,8 +475,12 @@ def run_detect_loop(
 
     ``dataset`` is any iterable of batch dicts ``{images uint8 [B, H, W, 3],
     image_ids, batch_valid}``. Batches ship as uint8 (4× smaller than f32 —
-    preprocessing runs on the device), and the drain of batch N's outputs
-    overlaps batch N+1's device work (1-deep pipeline). ``variables`` must
+    preprocessing runs on the device), ``cfg.steps_per_host_transfer = K``
+    at a time: one copy of the K stacked batches in, one packed result
+    out, on the card one CUDA graph launch (``fns`` from
+    ``make_detect_loop_fns(..., eager=True)`` keep the eager path); a
+    shorter last group runs batch by batch. The drain of group N's outputs
+    overlaps group N+1's device work (1-deep pipeline). ``variables`` must
     already live on ``device``.
 
     Under a process group of more than one rank (the counterpart of the
@@ -395,27 +509,47 @@ def run_detect_loop(
 
     results = []
 
-    def drain(batch, fetch):
-        boxes, scores, classes, nums = _unpack_dets(fetch.numpy())
-        for i in range(int(batch["batch_valid"])):
-            n = int(nums[i])
-            keep = scores[i, :n] >= thr
-            results.append(
-                {
-                    "image_id": batch["image_ids"][i],
-                    "boxes": boxes[i, :n][keep],
-                    "scores": scores[i, :n][keep],
-                    "classes": classes[i, :n][keep],
-                }
-            )
+    def drain(group, fetches):
+        arrays = [a for f in fetches for a in f.numpy()]  # [B, K, 7] each
+        for batch, arr in zip(group, arrays):
+            boxes, scores, classes, nums = _unpack_dets(arr)
+            for i in range(int(batch["batch_valid"])):
+                n = int(nums[i])
+                keep = scores[i, :n] >= thr
+                results.append(
+                    {
+                        "image_id": batch["image_ids"][i],
+                        "boxes": boxes[i, :n][keep],
+                        "scores": scores[i, :n][keep],
+                        "classes": classes[i, :n][keep],
+                    }
+                )
 
-    inflight = None
-    for batch in Prefetcher(iter(dataset), depth=2):
+    groups, chunk = fns["groups"], fns["chunk"]
+
+    def dispatch(group):
         # async on CUDA — the device works while the host drains
-        fetch = _Fetch(fns["per_batch"](variables, np.asarray(batch["images"])))
+        images = [np.asarray(b["images"]) for b in group]
+        if len(group) == chunk:
+            return groups.run(images)
+        return [f for x in images for f in groups.run([x])]  # a short last group
+
+    groups.load(variables)
+    inflight = None
+    group = []
+    for batch in Prefetcher(iter(dataset), depth=chunk + 1):
+        group.append(batch)
+        if len(group) < chunk:
+            continue
+        fetches = dispatch(group)
         if inflight is not None:
             drain(*inflight)
-        inflight = (batch, fetch)
+        inflight, group = (group, fetches), []
+    if group:
+        fetches = dispatch(group)
+        if inflight is not None:
+            drain(*inflight)
+        inflight = (group, fetches)
     if inflight is not None:
         drain(*inflight)
     if world > 1:

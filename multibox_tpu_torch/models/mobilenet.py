@@ -54,7 +54,7 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     ``jnp.minimum(nn.relu(x), 6.0)``: at x = 6 exactly the gradient is ½
     (``minimum`` splits a tie), where ``F.relu6``'s is 0; at x = 0 it is 0
     in both."""
-    return torch.minimum(torch.relu(x), x.new_tensor(6.0))
+    return torch.minimum(torch.relu(x), x.new_full((), 6.0))
 
 
 class ConvBNRelu6(nn.Module):

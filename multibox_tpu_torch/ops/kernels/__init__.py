@@ -17,10 +17,17 @@ The build goes to ``.work/kernels/`` beside the package (override with
 so that of several processes starting together (the ranks of a
 data-parallel run) one builds and the others load. Nothing here runs at
 import time.
+
+Inside a CUDA graph's capture (``multibox_tpu_torch.graphs``) the wrappers
+launch as they do eagerly: the stream is the capture stream, the scratch
+buffers are the graph's own (:func:`graph_scratch`), and the launches the
+capture counts are set aside and added again at each replay
+(:func:`launches_set_aside`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -71,6 +78,29 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts: a CUDA graph's replay launches
+    again what its capture counted."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def launches_set_aside():
+    """Within the block the launch counts start from 0; on leaving, the
+    dict the block yields holds what it counted and the counts are back
+    where they were. A graph's warm-up and capture run in such a block:
+    neither is a launch of the step (the capture only records it)."""
+    saved = dict(LAUNCHES)
+    reset_launch_counts()
+    seen: Dict[str, int] = {}
+    try:
+        yield seen
+    finally:
+        seen.update(LAUNCHES)
+        LAUNCHES.update(saved)
 
 
 def resolve_use_pallas(flag: Optional[bool], tensor: torch.Tensor) -> bool:
@@ -217,17 +247,35 @@ def current_stream_ptr() -> int:
 # torch.empty: stream order keeps two launches on one stream from using one
 # buffer at the same time. The kernels allocate nothing themselves.
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
+# While a CUDA graph is captured: the graph's own buffers (allocated in its
+# memory pool and kept by the graph), so that no eager launch and no other
+# graph ever frees or shares one that a graph's replay writes.
+_GRAPH_SCRATCH: Optional[Dict[tuple, torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def graph_scratch():
+    """Within the block (a graph's capture) :func:`scratch` hands out
+    buffers of the dict it yields, which the graph keeps."""
+    global _GRAPH_SCRATCH
+    owned: Dict[tuple, torch.Tensor] = {}
+    _GRAPH_SCRATCH = owned
+    try:
+        yield owned
+    finally:
+        _GRAPH_SCRATCH = None
 
 
 def scratch(device: torch.device, stream: int, numel: int, dtype: torch.dtype) -> torch.Tensor:
     """A buffer of at least ``numel`` elements of ``dtype`` for a launch on
     ``stream``; its contents are undefined."""
+    table = _SCRATCH if _GRAPH_SCRATCH is None else _GRAPH_SCRATCH
     key = (device, stream, dtype)
-    buf = _SCRATCH.get(key)
+    buf = table.get(key)
     if buf is None or buf.numel() < numel:
-        _SCRATCH.pop(key, None)  # free the smaller buffer first
+        table.pop(key, None)  # free the smaller buffer first
         buf = torch.empty(numel, dtype=dtype, device=device)
-        _SCRATCH[key] = buf
+        table[key] = buf
     return buf
 
 

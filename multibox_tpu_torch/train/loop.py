@@ -6,6 +6,11 @@ step → metrics, checkpoints and periodic eval.
   optimizer and EMA run on the device; only the uint8 canvases and the
   padded boxes cross from the host, and metrics come back only when they
   are logged.
+- On the card a group of ``cfg.steps_per_host_transfer = K`` steps is one
+  CUDA graph (:class:`GraphedTrainStep`): one copy of the K stacked batches
+  to the device, one graph launch, no wait for the device inside the
+  group, the last step's metrics back. What stays eager, and why, is
+  ``graphs.eager_reason``'s rule; the loop logs which path it takes.
 - The augmentation's random numbers come from a generator seeded with
   ``(cfg.seed, step)``: deterministic, and the same after a resume.
 - :func:`train` reads tfrecords through ``data.pipeline.DetectionDataset``
@@ -25,11 +30,12 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Iterable, Optional, Sequence, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from multibox_tpu_torch import graphs
 from multibox_tpu_torch.config import Config
 from multibox_tpu_torch.data import augment as augment_mod
 from multibox_tpu_torch.data.pipeline import DetectionDataset, Prefetcher
@@ -44,6 +50,7 @@ from multibox_tpu_torch.parallel import (
 )
 from multibox_tpu_torch.parallel import mesh
 from multibox_tpu_torch.train.state import (
+    NUM_SCALARS,
     TrainState,
     create_train_state,
     make_train_step,
@@ -54,14 +61,18 @@ from multibox_tpu_torch.utils.metrics import MetricsWriter
 log = logging.getLogger(__name__)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The augmentation seed of one step, from ``(seed, step)``."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0])
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The augmentation generator of one step, on ``device``, seeded from
     ``(seed, step)``."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
-def make_augmented_train_step(cfg: Config, model, priors, device=None):
+def make_augmented_train_step(cfg: Config, model, priors, device=None) -> "AugmentedTrainStep":
     """Wrap the train step so that augmentation runs first, on the device.
 
     Batch in: uint8 canvases ``images [B, H, W, 3]``, ``boxes [B, G, 4]``,
@@ -70,16 +81,26 @@ def make_augmented_train_step(cfg: Config, model, priors, device=None):
     Inside a data-parallel step the batch is the rank's rows of the global
     batch, and the augmentation parameters are drawn for the global batch
     (``augment_batch(rows=...)``), so each image is augmented as in one
-    process.
+    process. Calling the result runs one step eagerly;
+    :class:`GraphedTrainStep` replays its device part as a CUDA graph.
     """
-    device = resolve_device(device)
-    base_step = make_train_step(cfg, model, priors, device=device)
+    return AugmentedTrainStep(cfg, model, priors, device=device)
 
-    def step(state: TrainState, batch):
-        batch = shard_batch(batch, device)
+
+class AugmentedTrainStep:
+    """The step of :func:`make_augmented_train_step`."""
+
+    def __init__(self, cfg: Config, model, priors, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.base = make_train_step(cfg, model, priors, device=self.device)
+
+    def device_batch(self, batch, gen: Optional[torch.Generator]):
+        """The step's batch on the device (``batch`` already there):
+        augmented with ``gen``'s draws, or only preprocessed."""
+        cfg = self.cfg
         labels = batch.get("labels")
         if cfg.augment:
-            gen = step_generator(cfg.seed, state.step, device)
             out = augment_mod.augment_batch(
                 gen, batch["images"], batch["boxes"], batch["num_boxes"], cfg,
                 labels=labels, rows=mesh.global_rows(batch["images"].shape[0]))
@@ -93,14 +114,24 @@ def make_augmented_train_step(cfg: Config, model, priors, device=None):
         device_batch = {"images": images, "boxes": boxes, "num_boxes": num_boxes}
         if labels is not None and cfg.num_classes > 1:
             device_batch["labels"] = labels
-        return base_step(state, device_batch)
+        return device_batch
 
-    return step
+    def device_step(self, state: TrainState, batch, scalars: torch.Tensor,
+                    gen: Optional[torch.Generator]):
+        """Augmentation and ``TrainStep.device_step`` on a batch already on
+        the device; returns ``(new_batch_stats, metrics)``."""
+        return self.base.device_step(state, self.device_batch(batch, gen), scalars)
+
+    def __call__(self, state: TrainState, batch):
+        batch = shard_batch(batch, self.device)
+        gen = step_generator(self.cfg.seed, state.step, self.device) if self.cfg.augment \
+            else None
+        return self.base(state, self.device_batch(batch, gen))
 
 
 def make_chunked_step(step_fn, num_steps: int):
     """Run ``num_steps`` train steps over a stacked superbatch (leading
-    chunk axis) in one call; returns the last step's metrics."""
+    chunk axis) in one call, eagerly; returns the last step's metrics."""
 
     def chunk_step(state, superbatch):
         metrics = None
@@ -109,6 +140,102 @@ def make_chunked_step(step_fn, num_steps: int):
         return state, metrics
 
     return chunk_step
+
+
+def _state_tensors(state: TrainState):
+    """Every tensor of the state, in a fixed order."""
+    out = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k])
+        elif isinstance(tree, torch.Tensor):
+            out.append(tree)
+
+    for tree in (state.params, state.batch_stats, state.opt_state, state.ema_params):
+        walk(tree)
+    return out
+
+
+class GraphedTrainStep:
+    """K train steps (``step_fn``'s device part, augmentation included) as
+    one CUDA graph: ``step(state, batches) -> (state, metrics)`` runs
+    ``len(batches)`` steps with one copy of the stacked host batches and
+    their staged host values to the device and one graph launch, and
+    returns the last step's metrics (as the JAX package's chunked step).
+
+    The graph updates the state's own tensors in place: params, optimizer
+    state and EMA as the eager step does, and the new BatchNorm statistics
+    are copied into the state's. A graph is captured at the first call for
+    each group length and batch layout, with the state it is given; a call
+    with another state (one restored into new tensors) captures again.
+    Each step of a group draws its augmentation from its own generator,
+    seeded from ``(cfg.seed, step)`` before each launch: the draws are the
+    eager step's. A state stepped here must not be stepped eagerly in
+    between (the eager step puts new BatchNorm tensors in the state)."""
+
+    def __init__(self, step_fn: AugmentedTrainStep):
+        self.step_fn = step_fn
+        self.device = step_fn.device
+        self._graphs: Dict[tuple, tuple] = {}
+        self._tensors = None  # the state the graphs were captured with
+
+    def __call__(self, state: TrainState, batches: Sequence[Dict]):
+        fields = {k: [np.asarray(b[k]) for b in batches] for k in batches[0]}
+        tensors = _state_tensors(state)
+        if self._tensors is None or len(tensors) != len(self._tensors) or any(
+                a is not b for a, b in zip(tensors, self._tensors)):
+            self._graphs.clear()
+            self._tensors = tensors
+        key = (len(batches),) + tuple((k, graphs.spec_of(v)) for k, v in sorted(fields.items()))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(state, fields)
+            self._graphs[key] = entry
+        graph, staged = entry
+        K = len(batches)
+        self._stage(staged, state, fields)
+        for k, gen in enumerate(graph.generators):
+            gen.manual_seed(step_seed(self.step_fn.cfg.seed, state.step + k))
+        graph.replay()
+        metrics = {k: v.clone() for k, v in graph.outputs.items()}
+        metrics["learning_rate"] = self.step_fn.base.learning_rate(state.step + K - 1)
+        self.step_fn.base.finish(state, K)
+        return state, metrics
+
+    def _stage(self, staged, state: TrainState, fields) -> None:
+        """The group's batches and each step's host values, in one copy."""
+        K = len(next(iter(fields.values())))
+        scalars = np.asarray([self.step_fn.base.host_scalars(state, k) for k in range(K)],
+                             np.float32)
+        staged.put({**fields, "_scalars": scalars})
+
+    def _capture(self, state: TrainState, fields):
+        K = len(next(iter(fields.values())))
+        specs = {k: graphs.spec_of(v) for k, v in fields.items()}
+        specs["_scalars"] = ((K, NUM_SCALARS), np.dtype(np.float32))
+        staged = graphs.StagedInputs(specs, self.device)
+        self._stage(staged, state, fields)  # the warm-up runs on real inputs
+        gens = [torch.Generator(device=self.device) for _ in range(K)] \
+            if self.step_fn.cfg.augment else []
+
+        def group(s):
+            metrics = None
+            for k in range(K):
+                batch = {name: staged.views[name][k] for name in fields}
+                new_stats, metrics = self.step_fn.device_step(
+                    s, batch, staged.views["_scalars"][k], gens[k] if gens else None)
+                keys = list(s.batch_stats)
+                torch._foreach_copy_([s.batch_stats[n] for n in keys],
+                                     [new_stats[n] for n in keys])
+            return metrics
+
+        copy = state.clone()
+        graph = graphs.CapturedGraph(lambda: group(state), self.device,
+                                     warmup=lambda: group(copy), generators=gens)
+        del copy
+        return graph, staged
 
 
 _BACKBONE_SCOPES = ("InceptionV3", "MobileNetV2")
@@ -341,6 +468,7 @@ def train_from_batches(
     schedule_total: Optional[int] = None,
     use_mesh: bool = True,
     device=None,
+    eager: bool = False,
 ) -> TrainState:
     """Run training over a stream of host batches; returns
     the final state. Resumes from ``logdir``'s latest checkpoint when there
@@ -367,6 +495,11 @@ def train_from_batches(
     (``parallel.make_parallel_train_step``); ``use_mesh=False`` keeps the
     JAX package's meaning, a one-device step in each process (the ranks
     then train apart). Rank 0 writes the metrics and checkpoints.
+
+    On the card the steps run as CUDA graphs of ``cfg.steps_per_host_transfer``
+    steps (:class:`GraphedTrainStep`; a last group shorter than that runs as
+    one-step graphs), unless ``eager=True`` or the rule of
+    ``graphs.eager_reason`` keeps them eager; the log says which.
     """
     place = make_mesh(device)
     device = place.device
@@ -394,14 +527,23 @@ def train_from_batches(
         state = _restore_pretrained(state, pretrained_model, device)
 
     step_fn = make_augmented_train_step(cfg, model, priors, device=device)
-    if place.size > 1 and use_mesh:
+    parallel = place.size > 1 and use_mesh
+    if parallel:
         state = replicate_state(state)
-        step_fn = make_parallel_train_step(step_fn)
     elif place.size > 1:
         log.warning("use_mesh=False under %d ranks: each rank trains on its own "
                     "shard with its own step", place.size)
     chunk = max(1, int(cfg.steps_per_host_transfer))
-    cstep = make_chunked_step(step_fn, chunk) if chunk > 1 else None
+    eager_why = graphs.eager_reason(device, eager, cfg, place.size if parallel else 1)
+    gstep = cstep = None
+    if eager_why is None:
+        gstep = GraphedTrainStep(step_fn)
+        log.info("train steps: CUDA graphs, %d step(s) a host call", chunk)
+    else:
+        log.info("train steps: eager (%s)", eager_why)
+        if parallel:
+            step_fn = make_parallel_train_step(step_fn)
+        cstep = make_chunked_step(step_fn, chunk) if chunk > 1 else None
     source = batches(start_step) if callable(batches) else batches
     writer = MetricsWriter(logdir, enabled=place.rank == 0)
 
@@ -416,6 +558,15 @@ def train_from_batches(
     pending: list = []
 
     def run_pending(state, pending, step_idx):
+        if gstep is not None:
+            if len(pending) == chunk:
+                state, metrics = gstep(state, pending)
+                return state, metrics, step_idx + len(pending)
+            metrics = None
+            for b in pending:  # a last group shorter than K: one-step graphs
+                state, metrics = gstep(state, [b])
+                step_idx += 1
+            return state, metrics, step_idx
         if cstep is not None and len(pending) == chunk:
             superbatch = {k: np.stack([np.asarray(b[k]) for b in pending])
                           for k in pending[0]}

@@ -23,6 +23,13 @@ The parameters EMA follows slim's ``ExponentialMovingAverage`` with
 ``num_updates``: decay ``min(decay, (1 + t)/(10 + t))`` at the step t
 before the increment. A train step updates the state's tensors in place
 and returns the state.
+
+The values that change from step to step (the learning rate, Adam's bias
+corrections, the EMA decay) are computed on the host in float32, as
+before, and staged to the device as one small float32 tensor a step
+(``TrainStep.host_scalars``, :func:`stage_scalars`); the device part of the
+step (``TrainStep.device_step``) takes them as 0-d tensors and reads no
+host value, so that a CUDA graph can replay it (``multibox_tpu_torch.graphs``).
 """
 
 from __future__ import annotations
@@ -194,6 +201,17 @@ class Optimizer:
         self.adam_eps = cfg.adam_epsilon
         self.clip = cfg.clip_gradient_norm
 
+    def scalars(self, count: int) -> List[float]:
+        """The host values of the update at the schedule's ``count``:
+        ``[-lr, c1, c2]`` as float32 values (Adam's bias corrections
+        ``1 − b^(count + 1)``; 1 for the other families)."""
+        lr = self.schedule(count)
+        c1 = c2 = 1.0
+        if self.name == "adam":
+            c1 = float(1 - torch.pow(_f32(_ADAM_B1), _f32(count + 1)))
+            c2 = float(1 - torch.pow(_f32(_ADAM_B2), _f32(count + 1)))
+        return [_f32_scalar(-lr), c1, c2]
+
     def init(self, params: Tensors) -> Dict:
         state: Dict = {"count": 0}
         if self.name == "rmsprop":
@@ -207,14 +225,30 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def apply(self, params: Tensors, grads: Tensors, state: Dict) -> None:
+    def apply(self, params: Tensors, grads: Tensors, state: Dict,
+              scalars: Optional[torch.Tensor] = None) -> None:
+        """One update in place; ``state["count"]`` advances on the host.
+        ``scalars``: this step's values staged on the parameters' device
+        (:func:`stage_scalars` of :meth:`scalars`); made here when not
+        given."""
+        if scalars is None:
+            scalars = stage_scalars(self.scalars(state["count"]),
+                                    next(iter(params.values())).device)
+        self.apply_staged(params, grads, state, scalars)
+        state["count"] += 1
+
+    @torch.no_grad()
+    def apply_staged(self, params: Tensors, grads: Tensors, state: Dict,
+                     scalars: torch.Tensor) -> None:
+        """The device part of :meth:`apply`: ``scalars[0..2]`` are
+        ``-lr``, ``c1``, ``c2`` (0-d tensors); no host value is read and
+        the host count is left alone."""
         keys = list(params)
         p = [params[k] for k in keys]
         g = [grads[k] for k in keys]
         if self.clip > 0:
             g = clip_by_global_norm(g, self.clip)
-        lr = self.schedule(state["count"])
-        count = state["count"] + 1
+        neg_lr = scalars[_NEG_LR]
         if self.name == "rmsprop":
             nu = [state["nu"][k] for k in keys]
             # ν ← (1 − ρ)·g² + ρ·ν;  u = g·rsqrt(ν + ε)
@@ -223,30 +257,27 @@ class Optimizer:
                                                        1 - self.decay))
             scale = torch._foreach_rsqrt(torch._foreach_add(nu, self.eps))
             u = torch._foreach_mul(scale, g)
-            torch._foreach_mul_(u, _f32_scalar(-lr))
+            torch._foreach_mul_(u, neg_lr)
             u = self._trace(u, [state["trace"][k] for k in keys])
         elif self.name == "momentum":
             u = self._trace(g, [state["trace"][k] for k in keys])
-            u = torch._foreach_mul(u, _f32_scalar(-lr))
+            u = torch._foreach_mul(u, neg_lr)
         elif self.name == "sgd":
-            u = torch._foreach_mul(g, _f32_scalar(-lr))
+            u = torch._foreach_mul(g, neg_lr)
         else:  # adam, optax's defaults b1 = 0.9, b2 = 0.999, eps_root = 0
-            b1, b2 = 0.9, 0.999
+            b1, b2 = _ADAM_B1, _ADAM_B2
             mu = [state["mu"][k] for k in keys]
             nu = [state["nu"][k] for k in keys]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-            c1 = float(1 - torch.pow(_f32(b1), _f32(count)))
-            c2 = float(1 - torch.pow(_f32(b2), _f32(count)))
-            mu_hat = torch._foreach_div(mu, c1)
-            den = torch._foreach_sqrt(torch._foreach_div(nu, c2))
+            mu_hat = torch._foreach_div(mu, scalars[_C1])
+            den = torch._foreach_sqrt(torch._foreach_div(nu, scalars[_C2]))
             torch._foreach_add_(den, self.adam_eps)
             u = torch._foreach_div(mu_hat, den)
-            torch._foreach_mul_(u, _f32_scalar(-lr))
+            torch._foreach_mul_(u, neg_lr)
         torch._foreach_add_(p, u)
-        state["count"] = count
 
     def _trace(self, u: List[torch.Tensor], trace: List[torch.Tensor]):
         # t ← u + m·t; the update is the new trace
@@ -260,13 +291,35 @@ def _f32_scalar(x: float) -> float:
     return float(_f32(x))
 
 
+_ADAM_B1, _ADAM_B2 = 0.9, 0.999
+# a step's staged values (TrainStep.host_scalars): the optimizer's, then the EMA's
+_NEG_LR, _C1, _C2, _EMA_D, _EMA_1MD = range(5)
+NUM_SCALARS = 5
+
+
+def stage_scalars(values: List[float], device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``; to a CUDA device
+    through pinned memory without waiting for the copy."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
     """``optax.clip_by_global_norm``: unchanged below ``max_norm``, else
-    ``(g / ‖g‖) · max_norm``."""
+    ``(g / ‖g‖) · max_norm``. The choice is made on the device, with no
+    wait for the norm: each gradient becomes ``(g / d) · m`` with ``(d, m)``
+    ``(1, 1)`` below the bound, which leaves it exactly as it was, and
+    ``(‖g‖, max_norm)`` above it, the clipped value itself."""
     norm = torch.sqrt(sum(torch.sum(x * x) for x in grads))
-    if bool(norm < max_norm):
-        return grads
-    return [(x / norm) * max_norm for x in grads]
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    den = torch.where(keep, one, norm)
+    mul = torch.where(keep, one, torch.full_like(norm, max_norm))
+    out = torch._foreach_div(grads, den)
+    torch._foreach_mul_(out, mul)
+    return out
 
 
 def make_optimizer(cfg: Config) -> Optimizer:
@@ -303,18 +356,36 @@ def create_train_state(cfg: Config, model, rng, num_priors: int, device=None,
                       opt_state=make_optimizer(cfg).init(params), ema_params=ema)
 
 
-@torch.no_grad()
-def ema_update(ema: Tensors, params: Tensors, step: int, decay: float) -> None:
-    """slim's ``ExponentialMovingAverage`` with ``num_updates = step``, in
-    place: ``ema ← d·ema + (1 − d)·params`` with ``d = min(decay,
-    (1 + t)/(10 + t))`` in float32."""
+def ema_scalars(step: int, decay: float) -> List[float]:
+    """The host values of the EMA update at ``step``: ``[d, 1 − d]`` with
+    ``d = min(decay, (1 + t)/(10 + t))``, in float32."""
     t = _f32(step)
     d = float(torch.minimum(_f32(decay), (1.0 + t) / (10.0 + t)))
+    return [d, float(1 - _f32(d))]
+
+
+@torch.no_grad()
+def ema_update(ema: Tensors, params: Tensors, step: int, decay: float,
+               scalars: Optional[torch.Tensor] = None) -> None:
+    """slim's ``ExponentialMovingAverage`` with ``num_updates = step``, in
+    place: ``ema ← d·ema + (1 − d)·params`` with ``d = min(decay,
+    (1 + t)/(10 + t))`` in float32. ``scalars``: ``[d, 1 − d]``
+    (:func:`ema_scalars`) staged on the device; made here when not given."""
+    if scalars is None:
+        scalars = stage_scalars(ema_scalars(step, decay), next(iter(params.values())).device)
+    ema_update_staged(ema, params, scalars[0], scalars[1])
+
+
+@torch.no_grad()
+def ema_update_staged(ema: Tensors, params: Tensors, d: torch.Tensor,
+                      one_minus_d: torch.Tensor) -> None:
+    """The device part of :func:`ema_update`, ``d`` and ``1 − d`` as 0-d
+    tensors."""
     keys = list(params)
     shadows = [ema[k] for k in keys]
     torch._foreach_mul_(shadows, d)
     torch._foreach_add_(shadows, torch._foreach_mul(
-        [params[k].detach() for k in keys], float(1 - _f32(d))))
+        [params[k].detach() for k in keys], one_minus_d))
 
 
 def _metrics_mean(per_micro: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -327,7 +398,7 @@ def _metrics_mean(per_micro: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.T
     return out
 
 
-def make_train_step(cfg: Config, model, priors, device=None):
+def make_train_step(cfg: Config, model, priors, device=None) -> "TrainStep":
     """Build ``step(state, batch) -> (state, metrics)``. ``batch``:
     ``images [B, S, S, 3]`` float32 in [-1, 1], ``boxes [B, G, 4]``,
     ``num_boxes [B]`` int, optional ``labels [B, G]``, on ``device``.
@@ -344,25 +415,39 @@ def make_train_step(cfg: Config, model, priors, device=None):
     the global batch: BatchNorm and the loss reduce over the global batch,
     the microbatches are slices of the global batch, and the gradients are
     summed over the ranks (one collective a dtype) before the optimizer."""
-    device = resolve_device(device)
-    optimizer = make_optimizer(cfg)
-    priors = torch.as_tensor(priors, dtype=torch.float32).to(device)
+    return TrainStep(cfg, model, priors, device=device)
 
-    def forward(params, batch_stats, images):
-        return detector_mod.apply(model, {"params": params, "batch_stats": batch_stats},
-                                  images, train=True)
 
-    if cfg.remat:
-        plain_forward = forward
+class TrainStep:
+    """The train step of :func:`make_train_step`: calling it runs one step
+    eagerly. Its parts, for a caller that replays the device part as a CUDA
+    graph (``multibox_tpu_torch.graphs``): :meth:`host_scalars` (the
+    step's host values), :meth:`device_step` (everything on the device,
+    with those values staged) and :meth:`finish` (the host's bookkeeping)."""
 
-        def forward(params, batch_stats, images):
-            return torch.utils.checkpoint.checkpoint(
-                plain_forward, params, batch_stats, images, use_reentrant=False)
+    def __init__(self, cfg: Config, model, priors, device=None):
+        self.cfg = cfg
+        self.model = model
+        self.device = resolve_device(device)
+        self.optimizer = make_optimizer(cfg)
+        self.priors = torch.as_tensor(priors, dtype=torch.float32).to(self.device)
 
-    def loss_and_grads(params, batch_stats, batch):
-        (loc, conf), new_stats = forward(params, batch_stats, batch["images"])
+    def _forward(self, params, batch_stats, images):
+        variables = {"params": params, "batch_stats": batch_stats}
+        if not self.cfg.remat:
+            return detector_mod.apply(self.model, variables, images, train=True)
+        # the forward draws no random numbers: no generator state to keep
+        # for the recompute (and none to read inside a graph's capture)
+        return torch.utils.checkpoint.checkpoint(
+            lambda p, s, x: detector_mod.apply(self.model, {"params": p, "batch_stats": s},
+                                               x, train=True),
+            params, batch_stats, images, use_reentrant=False, preserve_rng_state=False)
+
+    def _loss_and_grads(self, params, batch_stats, batch):
+        cfg = self.cfg
+        (loc, conf), new_stats = self._forward(params, batch_stats, batch["images"])
         total, metrics = multibox_loss(
-            loc, conf, batch["boxes"], batch["num_boxes"], priors,
+            loc, conf, batch["boxes"], batch["num_boxes"], self.priors,
             alpha=cfg.location_loss_alpha,
             matching=cfg.matching,
             hybrid_conf_weight=cfg.hybrid_conf_weight,
@@ -383,8 +468,8 @@ def make_train_step(cfg: Config, model, priors, device=None):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dict(zip(keys, grads)), new_stats, metrics
 
-    def grads_accumulated(state: TrainState, batch):
-        A = cfg.grad_accum_steps
+    def _grads_accumulated(self, state: TrainState, batch):
+        A = self.cfg.grad_accum_steps
         local = batch["images"].shape[0]
         # microbatch a is rows [a·B/A, (a+1)·B/A) of the GLOBAL batch (the
         # ranks' rows in rank order); each rank runs its part of it, with
@@ -399,27 +484,49 @@ def make_train_step(cfg: Config, model, priors, device=None):
         for a in range(A):
             lo, hi = (min(max(r - first, 0), local) for r in (a * (B // A), (a + 1) * (B // A)))
             micro = {k: v[lo:hi] for k, v in batch.items()}
-            grads, stats, metrics = loss_and_grads(state.params, stats, micro)
+            grads, stats, metrics = self._loss_and_grads(state.params, stats, micro)
             for k, g in grads.items():
                 gsum[k] += g
             per_micro.append(metrics)
         grads = {k: (g / A).to(state.params[k].dtype) for k, g in gsum.items()}
         return grads, stats, _metrics_mean(per_micro)
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        if cfg.grad_accum_steps > 1:
-            grads, new_stats, metrics = grads_accumulated(state, batch)
+    def host_scalars(self, state: TrainState, ahead: int = 0) -> List[float]:
+        """The host values of the step ``ahead`` steps after ``state``'s
+        (:data:`NUM_SCALARS` floats: the optimizer's, then the EMA's)."""
+        return (self.optimizer.scalars(state.opt_state["count"] + ahead)
+                + ema_scalars(state.step + ahead, self.cfg.moving_average_decay))
+
+    def device_step(self, state: TrainState, batch, scalars: torch.Tensor):
+        """Forward, loss, backward, the optimizer and the EMA in place, with
+        this step's :meth:`host_scalars` staged in ``scalars``; returns
+        ``(new_batch_stats, metrics)``. Reads no host value and changes
+        nothing on the host."""
+        if self.cfg.grad_accum_steps > 1:
+            grads, new_stats, metrics = self._grads_accumulated(state, batch)
         else:
-            grads, new_stats, metrics = loss_and_grads(
+            grads, new_stats, metrics = self._loss_and_grads(
                 state.params, state.batch_stats, batch)
         if mesh.reducing():  # the rows' shares summed: the global gradient
             mesh.all_reduce_tensors(list(grads.values()), "gradients")
-        optimizer.apply(state.params, grads, state.opt_state)
-        ema_update(state.ema_params, state.params, state.step, cfg.moving_average_decay)
-        metrics["learning_rate"] = torch.tensor(
-            optimizer.schedule(state.step), dtype=torch.float32)
-        state.batch_stats = new_stats
-        state.step += 1
-        return state, metrics
+        self.optimizer.apply_staged(state.params, grads, state.opt_state, scalars)
+        ema_update_staged(state.ema_params, state.params, scalars[_EMA_D],
+                          scalars[_EMA_1MD])
+        return new_stats, metrics
 
-    return train_step
+    def learning_rate(self, step: int) -> torch.Tensor:
+        """The logged ``learning_rate`` of the step at ``step``."""
+        return torch.tensor(self.optimizer.schedule(step), dtype=torch.float32)
+
+    def finish(self, state: TrainState, steps: int = 1) -> None:
+        """The host's part after ``steps`` device steps: the counts."""
+        state.opt_state["count"] += steps
+        state.step += steps
+
+    def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        scalars = stage_scalars(self.host_scalars(state), self.device)
+        new_stats, metrics = self.device_step(state, batch, scalars)
+        metrics["learning_rate"] = self.learning_rate(state.step)
+        state.batch_stats = new_stats
+        self.finish(state)
+        return state, metrics
