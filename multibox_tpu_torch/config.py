@@ -181,7 +181,9 @@ class Config:
 
     # --- debugging / observability ---
     debug_nans: bool = False  # anomaly-detection toggle (training slice)
-    profile_steps: int = 0  # >0: capture a profiler trace of N steps
+    # >0: a torch.profiler trace of N train steps, with the program's spans
+    # (utils.spans: prefetch wait, staging, replay) beside the device's kernels
+    profile_steps: int = 0
 
 
 # Reference-era UPPER_CASE YAML key → dataclass field.

@@ -22,6 +22,7 @@ import numpy as np
 from multibox_tpu_torch.data import jpeg as jpeg_mod
 from multibox_tpu_torch.data.example_proto import parse_detection_example
 from multibox_tpu_torch.data.tfrecord import read_records
+from multibox_tpu_torch.utils.spans import span
 
 
 def pad_boxes(boxes: np.ndarray, max_num: int):
@@ -376,7 +377,8 @@ class Prefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("prefetch.wait"):
+                item = self._q.get()
             if item is self._done:
                 if self._error is not None:
                     raise self._error

@@ -23,6 +23,9 @@ How a graph is made (:class:`CapturedGraph`):
 - the launches the wrappers count during the warm-up and the capture are
   set aside; the capture's are added again at every replay, so that
   ``ops.kernels.launch_counts()`` reads as after the eager steps;
+- each capture is counted by its owner (``"detect"``, ``"train"`` or
+  ``"other"``) with the host seconds of its warm-up and its capture
+  (:func:`capture_counts`), kept apart from the steps' own time;
 - random numbers come from generators registered with the graph and seeded
   again before each replay, so that a replay draws what a fresh generator
   of the same seed draws eagerly.
@@ -43,12 +46,14 @@ path. What stays eager, by rule (:func:`eager_reason`):
 from __future__ import annotations
 
 import logging
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multibox_tpu_torch.ops import kernels
+from multibox_tpu_torch.utils.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -117,21 +122,23 @@ class StagedInputs:
         """Write each field (a sequence of arrays stacked along the first
         axis, or one array) into the pinned buffer, then one asynchronous
         copy to the device on the current stream."""
-        if self._copied is not None:
-            self._copied.synchronize()  # the last copy out of the pinned buffer
-        for name, value in fields.items():
-            dst = self.host_views[name]
-            if isinstance(value, np.ndarray):
-                _copy_into(dst, value, name)
-            else:
-                if len(value) != dst.shape[0]:
-                    raise ValueError(f"staged input {name!r}: {len(value)} arrays for "
-                                     f"{dst.shape[0]} slots")
-                for i, a in enumerate(value):
-                    _copy_into(dst[i], np.asarray(a), name)
-        self.device_buf.copy_(self.host, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+        with span("graphs.stage"):
+            with span("graphs.stage.wait"):
+                if self._copied is not None:
+                    self._copied.synchronize()  # the last copy out of the pinned buffer
+            for name, value in fields.items():
+                dst = self.host_views[name]
+                if isinstance(value, np.ndarray):
+                    _copy_into(dst, value, name)
+                else:
+                    if len(value) != dst.shape[0]:
+                        raise ValueError(f"staged input {name!r}: {len(value)} arrays for "
+                                         f"{dst.shape[0]} slots")
+                    for i, a in enumerate(value):
+                        _copy_into(dst[i], np.asarray(a), name)
+            self.device_buf.copy_(self.host, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
 
 
 def _copy_into(dst: np.ndarray, src: np.ndarray, name: str) -> None:
@@ -147,6 +154,20 @@ def spec_of(arrays: Sequence[np.ndarray]) -> Tuple[Tuple[int, ...], np.dtype]:
     return (len(arrays),) + first.shape, first.dtype
 
 
+CAPTURES: Dict[str, Dict[str, float]] = {}
+
+
+def capture_counts() -> Dict[str, Dict[str, float]]:
+    """``{owner: {"captures": n, "warmup_s": s, "capture_s": s}}``: the
+    graphs made since the last reset, and the host seconds of their
+    warm-ups (until the device finished them) and captures."""
+    return {owner: dict(c) for owner, c in CAPTURES.items()}
+
+
+def reset_capture_counts() -> None:
+    CAPTURES.clear()
+
+
 class CapturedGraph:
     """``fn`` captured as a CUDA graph on ``device``.
 
@@ -154,28 +175,39 @@ class CapturedGraph:
     first; ``generators`` are registered with the graph (the caller seeds
     them before each :meth:`replay`). ``outputs`` is what ``fn`` returned
     during the capture: tensors of the graph's pool, rewritten by every
-    replay. ``launches`` is what the wrappers counted during the capture."""
+    replay. ``launches`` is what the wrappers counted during the capture.
+    ``owner`` names the step in :func:`capture_counts`."""
 
     def __init__(self, fn: Callable, device: torch.device,
                  warmup: Optional[Callable] = None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), owner: str = "other"):
         self.device = device
         stream = capture_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream), kernels.launches_set_aside():
-            (warmup or fn)()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            self.graph.register_generator_state(gen)
-        with kernels.launches_set_aside() as seen, kernels.graph_scratch() as owned:
-            with torch.cuda.graph(self.graph, stream=stream):
-                self.outputs = fn()
+        with span("graphs.capture"):
+            t0 = time.perf_counter()
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream), kernels.launches_set_aside():
+                (warmup or fn)()
+            stream.synchronize()  # as the capture would at its start
+            t1 = time.perf_counter()
+            torch.cuda.current_stream(device).wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                self.graph.register_generator_state(gen)
+            with kernels.launches_set_aside() as seen, kernels.graph_scratch() as owned:
+                with torch.cuda.graph(self.graph, stream=stream):
+                    self.outputs = fn()
+            t2 = time.perf_counter()
+        count = CAPTURES.setdefault(owner, {"captures": 0, "warmup_s": 0.0, "capture_s": 0.0})
+        count["captures"] += 1
+        count["warmup_s"] += t1 - t0
+        count["capture_s"] += t2 - t1
         self.launches = dict(seen)
         self.scratch = owned  # the kernels' buffers the graph writes
         self.generators = tuple(generators)
 
     def replay(self) -> None:
         """One launch of the whole graph on the current stream."""
-        self.graph.replay()
+        with span("graphs.replay"):
+            self.graph.replay()
         kernels.add_launches(self.launches)

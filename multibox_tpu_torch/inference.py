@@ -38,6 +38,7 @@ from multibox_tpu_torch.ops.kernels import box_kernel, resolve_use_pallas
 from multibox_tpu_torch.ops.nms import batched_nms, batched_soft_nms
 from multibox_tpu_torch.parallel.gather import process_allgather_objects
 from multibox_tpu_torch.parallel.sync import world_size
+from multibox_tpu_torch.utils.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -428,7 +429,7 @@ class _GraphedGroups:
             return torch.stack([_packed(self.body, self.static, x[k], self.input_size)
                                 for k in range(len(images))])
 
-        return graphs.CapturedGraph(group, self.body.device), staged
+        return graphs.CapturedGraph(group, self.body.device, owner="detect"), staged
 
 
 def _clone_tree(tree):
@@ -455,8 +456,9 @@ class _Fetch:
             self._host, self._event = packed, None
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        with span("detect.drain.wait"):
+            if self._event is not None:
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -510,48 +512,51 @@ def run_detect_loop(
     results = []
 
     def drain(group, fetches):
-        arrays = [a for f in fetches for a in f.numpy()]  # [B, K, 7] each
-        for batch, arr in zip(group, arrays):
-            boxes, scores, classes, nums = _unpack_dets(arr)
-            for i in range(int(batch["batch_valid"])):
-                n = int(nums[i])
-                keep = scores[i, :n] >= thr
-                results.append(
-                    {
-                        "image_id": batch["image_ids"][i],
-                        "boxes": boxes[i, :n][keep],
-                        "scores": scores[i, :n][keep],
-                        "classes": classes[i, :n][keep],
-                    }
-                )
+        with span("detect.drain"):
+            arrays = [a for f in fetches for a in f.numpy()]  # [B, K, 7] each
+            for batch, arr in zip(group, arrays):
+                boxes, scores, classes, nums = _unpack_dets(arr)
+                for i in range(int(batch["batch_valid"])):
+                    n = int(nums[i])
+                    keep = scores[i, :n] >= thr
+                    results.append(
+                        {
+                            "image_id": batch["image_ids"][i],
+                            "boxes": boxes[i, :n][keep],
+                            "scores": scores[i, :n][keep],
+                            "classes": classes[i, :n][keep],
+                        }
+                    )
 
     groups, chunk = fns["groups"], fns["chunk"]
 
     def dispatch(group):
         # async on CUDA — the device works while the host drains
-        images = [np.asarray(b["images"]) for b in group]
-        if len(group) == chunk:
-            return groups.run(images)
-        return [f for x in images for f in groups.run([x])]  # a short last group
+        with span("detect.dispatch"):
+            images = [np.asarray(b["images"]) for b in group]
+            if len(group) == chunk:
+                return groups.run(images)
+            return [f for x in images for f in groups.run([x])]  # a short last group
 
-    groups.load(variables)
-    inflight = None
-    group = []
-    for batch in Prefetcher(iter(dataset), depth=chunk + 1):
-        group.append(batch)
-        if len(group) < chunk:
-            continue
-        fetches = dispatch(group)
+    with span("detect.loop"):
+        groups.load(variables)
+        inflight = None
+        group = []
+        for batch in Prefetcher(iter(dataset), depth=chunk + 1):
+            group.append(batch)
+            if len(group) < chunk:
+                continue
+            fetches = dispatch(group)
+            if inflight is not None:
+                drain(*inflight)
+            inflight, group = (group, fetches), []
+        if group:
+            fetches = dispatch(group)
+            if inflight is not None:
+                drain(*inflight)
+            inflight = (group, fetches)
         if inflight is not None:
             drain(*inflight)
-        inflight, group = (group, fetches), []
-    if group:
-        fetches = dispatch(group)
-        if inflight is not None:
-            drain(*inflight)
-        inflight = (group, fetches)
-    if inflight is not None:
-        drain(*inflight)
     if world > 1:
         results = [r for part in process_allgather_objects(results) for r in part]
         # two ranks mis-wired with the same shard_index would detect one

@@ -57,6 +57,7 @@ from multibox_tpu_torch.train.state import (
 )
 from multibox_tpu_torch.utils.checkpoint import CheckpointManager
 from multibox_tpu_torch.utils.metrics import MetricsWriter
+from multibox_tpu_torch.utils.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -182,27 +183,28 @@ class GraphedTrainStep:
         self._tensors = None  # the state the graphs were captured with
 
     def __call__(self, state: TrainState, batches: Sequence[Dict]):
-        fields = {k: [np.asarray(b[k]) for b in batches] for k in batches[0]}
-        tensors = _state_tensors(state)
-        if self._tensors is None or len(tensors) != len(self._tensors) or any(
-                a is not b for a, b in zip(tensors, self._tensors)):
-            self._graphs.clear()
-            self._tensors = tensors
-        key = (len(batches),) + tuple((k, graphs.spec_of(v)) for k, v in sorted(fields.items()))
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._capture(state, fields)
-            self._graphs[key] = entry
-        graph, staged = entry
-        K = len(batches)
-        self._stage(staged, state, fields)
-        for k, gen in enumerate(graph.generators):
-            gen.manual_seed(step_seed(self.step_fn.cfg.seed, state.step + k))
-        graph.replay()
-        metrics = {k: v.clone() for k, v in graph.outputs.items()}
-        metrics["learning_rate"] = self.step_fn.base.learning_rate(state.step + K - 1)
-        self.step_fn.base.finish(state, K)
-        return state, metrics
+        with span("train.group"):
+            fields = {k: [np.asarray(b[k]) for b in batches] for k in batches[0]}
+            tensors = _state_tensors(state)
+            if self._tensors is None or len(tensors) != len(self._tensors) or any(
+                    a is not b for a, b in zip(tensors, self._tensors)):
+                self._graphs.clear()
+                self._tensors = tensors
+            key = (len(batches),) + tuple((k, graphs.spec_of(v)) for k, v in sorted(fields.items()))
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(state, fields)
+                self._graphs[key] = entry
+            graph, staged = entry
+            K = len(batches)
+            self._stage(staged, state, fields)
+            for k, gen in enumerate(graph.generators):
+                gen.manual_seed(step_seed(self.step_fn.cfg.seed, state.step + k))
+            graph.replay()
+            metrics = {k: v.clone() for k, v in graph.outputs.items()}
+            metrics["learning_rate"] = self.step_fn.base.learning_rate(state.step + K - 1)
+            self.step_fn.base.finish(state, K)
+            return state, metrics
 
     def _stage(self, staged, state: TrainState, fields) -> None:
         """The group's batches and each step's host values, in one copy."""
@@ -233,7 +235,7 @@ class GraphedTrainStep:
 
         copy = state.clone()
         graph = graphs.CapturedGraph(lambda: group(state), self.device,
-                                     warmup=lambda: group(copy), generators=gens)
+                                     warmup=lambda: group(copy), generators=gens, owner="train")
         del copy
         return graph, staged
 

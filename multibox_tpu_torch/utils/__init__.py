@@ -1,1 +1,1 @@
-"""Host-side utilities: checkpoints, metrics and the build lock."""
+"""Host-side utilities: checkpoints, metrics, spans and the build lock."""

@@ -16,7 +16,8 @@
   that cross a schedule boundary, clipping off and on, on both sides of
   the clip.
 - On the card (``-m cuda``; skipped here): one detect loop and one train
-  loop captured as graphs, bit for bit against the eager path.
+  loop captured as graphs, bit for bit against the eager path; the spans
+  of graphed groups and the captures counted by owner.
 
 JAX is imported inside the tests that use it, so that the card's run
 (``python3 -m pytest -q -m cuda --noconftest tests/test_torch_graphs.py``)
@@ -440,3 +441,73 @@ def _graphs_against_eager(tmp_path):
         assert states[True][1] == states[False][1] and states[True][1]["match"] == \
             5 * tcfg.grad_accum_steps, extra
         assert_bitwise(states[True][0], states[False][0])
+
+
+# every span of the package (``utils.spans``)
+SPANS = {"prefetch.wait", "detect.loop", "detect.dispatch", "detect.drain", "detect.drain.wait",
+         "train.group", "graphs.capture", "graphs.stage", "graphs.stage.wait", "graphs.replay"}
+
+
+@pytest.mark.cuda
+def test_graphed_steps_span_each_group_and_count_one_capture_an_owner():
+    """A graphed detect loop (4 batches at K = 2) and graphed train groups
+    (two steps at K = 2), each run once to capture and again on the same
+    shapes, then a graph captured with the default owner: one capture an
+    owner. Under ``torch.profiler``: a ``graphs.stage``,
+    ``graphs.stage.wait`` and ``graphs.replay`` a group, and no span among
+    the device's work (the ranges that host spans leave on the device's
+    timeline are user annotations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU counterpart")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multibox_tpu_torch import graphs
+    from multibox_tpu_torch.train.loop import GraphedTrainStep, make_augmented_train_step
+
+    dev = torch.device("cuda")
+    graphs.reset_capture_counts()
+    cfg = Config(**dict(DETECT, use_pallas=True, steps_per_host_transfer=2))
+    model = tinf.build_model(cfg, 16, device=dev)
+    variables = model.init_variables(torch.Generator().manual_seed(0))
+    variables = {c: {k: v.to(dev) for k, v in t.items()} for c, t in variables.items()}
+    priors = np.sort(np.random.default_rng(0).uniform(0.05, 0.95, (16, 2, 2)).astype(
+        np.float32), axis=1).reshape(16, 4)
+    data = detect_batches(np.random.default_rng(1), batches=4)
+    fns = tinf.make_detect_loop_fns(cfg, priors, device=dev)
+    loop = lambda: tinf.run_detect_loop(cfg, variables, data, priors, fns=fns)  # noqa: E731
+    loop()
+
+    tcfg = small_cfg(use_pallas=True, steps_per_host_transfer=2)
+    tmodel = tinf.build_model(tcfg, len(PRIORS), device=dev)
+    state = tstate.create_train_state(tcfg, tmodel, tcfg.seed, len(PRIORS), device=dev)
+    steps = GraphedTrainStep(make_augmented_train_step(tcfg, tmodel, PRIORS, device=dev))
+    tdata = train_batches(np.random.default_rng(2), 6)
+    state, _ = steps(state, tdata[:2])
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loop()
+        steps(state, tdata[2:4])
+        torch.cuda.synchronize()
+    steps(state, tdata[4:])
+    other = graphs.CapturedGraph(lambda: torch.ones(8, device=dev) * 2, dev)
+    other.replay()
+    assert other.outputs.tolist() == [2.0] * 8
+    counts = graphs.capture_counts()
+    assert {k: c["captures"] for k, c in counts.items()} == {"detect": 1, "train": 1, "other": 1}
+    assert all(c["warmup_s"] > 0 and c["capture_s"] > 0 for c in counts.values())
+
+    host, device = {}, []
+    for e in prof.events():
+        if e.name not in SPANS:
+            continue
+        if e.device_type == DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0) + 1
+        elif not e.is_user_annotation:
+            device.append(e.name)
+    # two detect groups and one train group
+    assert host == {"detect.loop": 1, "detect.dispatch": 2, "detect.drain": 2,
+                    "detect.drain.wait": 2, "prefetch.wait": 5, "train.group": 1,
+                    "graphs.stage": 3, "graphs.stage.wait": 3, "graphs.replay": 3}
+    assert not device
